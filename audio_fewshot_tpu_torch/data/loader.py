@@ -1,0 +1,337 @@
+"""Episodic eval loaders and ``get_dataloader`` (counterpart of
+``audio_fewshot_tpu/data/loader.py``, eval mode).
+
+Val/test batches: support clips contribute their first segment; query clips
+contribute ALL their segments, packed into a bucketed, masked query axis.
+A background thread builds numpy batches while the device computes.  With a
+segment bank (``data/bank.py``) the loader emits bank row ids instead of
+payloads.  Training batches come with the training slice.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import re
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ..episode import (
+    EpisodeBatch,
+    pack_ragged_episode_batch,
+    pack_ragged_episode_indices,
+)
+from ..models.base import ModelType
+from .dataset import (
+    DEFAULT_SEGMENT_FRAMES,
+    SpectrogramDataset,
+    load_mean_std,
+    load_splits,
+    parse_synthetic_root,
+)
+from .sampler import EpisodeIndices, EpisodicSampler
+
+_SPLIT_INDEX = {"train": 0, "val": 1, "test": 2}
+
+
+def get_mean_std(config: Dict[str, Any], mode: str = "train", modality: str = "audio") -> Tuple[float, float]:
+    """Scalar normalization stats for this config ((0, 1) without a file)."""
+    path = config.get("mean_std_file")
+    if path and os.path.isfile(path):
+        return load_mean_std(path)
+    return 0.0, 1.0
+
+
+def resolve_data_sources(config: Dict[str, Any], mode: str) -> Tuple[str, Optional[str]]:
+    """``(data_root, mean_std_file)`` for a split, honoring the OOD protocol:
+    with ``ood: true`` the TEST split reads ``ood_data_root`` if set, else
+    ``data_root`` with its ``KOS_<alpha>_alpha`` component replaced by
+    ``KOS_0_alpha``; ``ood_mean_std_file`` overrides the stats."""
+    data_root = str(config.get("data_root") or "synthetic")
+    mean_std = config.get("mean_std_file")
+    if mode == "test" and config.get("ood"):
+        if config.get("ood_data_root"):
+            data_root = str(config["ood_data_root"])
+        else:
+            redirected = re.sub(r"KOS_[0-9.]+_alpha", "KOS_0_alpha", data_root)
+            if not re.search(r"KOS_[0-9.]+_alpha", data_root) \
+                    and parse_synthetic_root(data_root) is None \
+                    and os.path.isdir(data_root):
+                # a silent no-op would report the IID number as the OOD one
+                raise ValueError(
+                    f"ood: true but data_root {data_root!r} has no "
+                    "KOS_<alpha>_alpha component to redirect and no "
+                    "ood_data_root is set — the test split would silently "
+                    "be the IID one"
+                )
+            data_root = redirected
+        if config.get("ood_mean_std_file"):
+            mean_std = config["ood_mean_std_file"]
+    return data_root, mean_std
+
+
+def build_dataset(config: Dict[str, Any], mode: str) -> SpectrogramDataset:
+    data_root, mean_std_file = resolve_data_sources(config, mode)
+    cfg_for_stats = dict(config)
+    cfg_for_stats["mean_std_file"] = mean_std_file
+    mean, std = get_mean_std(cfg_for_stats, mode, config.get("modality", "audio"))
+    seg_frames = config.get("segment_frames", DEFAULT_SEGMENT_FRAMES)
+
+    syn = parse_synthetic_root(data_root)
+    if syn is None and not os.path.isdir(data_root):
+        syn = {"num_classes": 25, "clips_per_class": 40}
+    if syn is not None:
+        sizes = {"train": syn["num_classes"], "val": 5, "test": 8}
+        offsets = {"train": 0, "val": sizes["train"], "test": sizes["train"] + 5}
+        # 0 is the on-disk loader's "unlimited" sentinel; the synthetic
+        # generator needs a concrete positive cap
+        max_seg = 1 if mode == "train" else (
+            int(config.get("max_segments_per_clip") or 8)
+        )
+        spec_shape = tuple(config.get("spec_shape") or (1, 128, seg_frames))
+        # synthetic OOD twin: same classes, shifted generator seed
+        ood_shift = 100 if (mode == "test" and config.get("ood")) else 0
+        return SpectrogramDataset.synthetic(
+            num_classes=sizes[mode],
+            clips_per_class=syn["clips_per_class"],
+            segment_shape=spec_shape,
+            max_segments=max_seg,
+            seed=int(config.get("seed", 0)) + _SPLIT_INDEX[mode] + ood_shift,
+            class_offset=offsets[mode],
+        )
+
+    split_file = config.get("class_per_split")
+    if split_file and os.path.isfile(split_file):
+        splits = load_splits(split_file)
+        all_classes = [c for s in splits for c in s]
+        classes = splits[_SPLIT_INDEX[mode]]
+        class_offset = all_classes.index(classes[0]) if classes else 0
+    else:
+        classes = None
+        class_offset = 0
+    return SpectrogramDataset.from_directory(
+        data_root,
+        classes=classes,
+        mean=mean,
+        std=std,
+        segment_frames=seg_frames,
+        class_offset=class_offset,
+        max_segments=int(config.get("max_segments_per_clip", 8) or 0),
+    )
+
+
+class EpisodicLoader:
+    """Iterable over epochs of eval ``EpisodeBatch``es, with background
+    prefetch."""
+
+    def __init__(
+        self,
+        dataset: SpectrogramDataset,
+        way: int,
+        shot: int,
+        query: int,
+        episodes_per_epoch: int,
+        episode_size: int = 1,
+        mode: str = "test",
+        seed: int = 0,
+        segment_bucket_sizes: Optional[Tuple[int, ...]] = None,
+        prefetch: int = 2,
+        augment_times: int = 1,
+    ):
+        if mode == "train":
+            raise NotImplementedError(
+                "training batches come with the port's training slice"
+            )
+        self.dataset = dataset
+        self.way, self.query = way, query
+        #: emit ``IndexedEpisodeBatch``es of bank row ids (see ``use_segment_bank``)
+        self.emit_indices = False
+        self._bank_starts: Optional[List[List[int]]] = None
+        #: effective shot: each support clip contributes ``augment_times`` copies
+        self.shot = shot * augment_times
+        self.augment_times = augment_times
+        self.mode = mode
+        self.episode_size = episode_size
+        self.prefetch = prefetch
+        self.segment_bucket_sizes = segment_bucket_sizes
+        self.sampler = EpisodicSampler(
+            dataset.clips_per_class(),
+            way=way,
+            shot=shot,
+            query=query,
+            episodes_per_epoch=episodes_per_epoch,
+            episode_size=episode_size,
+            seed=seed,
+        )
+
+    def __len__(self) -> int:
+        return self.sampler.episodes_per_epoch // self.episode_size
+
+    def use_segment_bank(self) -> None:
+        """Switch batches to bank-index form; the caller puts
+        ``dataset.segment_bank()[0]`` on the device and materializes episodes
+        with ``episode.materialize_episode_batch``."""
+        self._bank_starts = self.dataset.bank_starts()
+        self.emit_indices = True
+
+    def _build_batch(self, plans: List[EpisodeIndices]):
+        if self.emit_indices:
+            return self._build_index_batch(plans)
+        ds = self.dataset
+        e = len(plans)
+        ws = self.way * self.shot
+        wq = self.way * self.query
+        support = np.empty((e, ws) + ds.segment_shape, dtype=np.float32)
+        global_sup = np.empty((e, ws), dtype=np.int32)
+        global_qry = np.empty((e, wq), dtype=np.int32)
+        seg_list: List[np.ndarray] = []
+        repeats = np.empty((e, wq), dtype=np.int64)
+        for i, plan in enumerate(plans):
+            s = q = 0
+            for w, cls in enumerate(plan.classes):
+                for k in plan.support[w]:
+                    for _ in range(self.augment_times):
+                        support[i, s] = ds.clips[cls][k][0]
+                        global_sup[i, s] = cls + ds.class_offset
+                        s += 1
+                for k in plan.query[w]:
+                    segs = ds.clips[cls][k]
+                    seg_list.append(segs)
+                    repeats[i, q] = segs.shape[0]
+                    global_qry[i, q] = cls + ds.class_offset
+                    q += 1
+        all_segs = ds.normalize(np.concatenate(seg_list, axis=0))
+        support = ds.normalize(support)
+        batch = pack_ragged_episode_batch(
+            support, all_segs, repeats.reshape(-1), self.way, self.shot,
+            self.query, bucket_sizes=self.segment_bucket_sizes,
+        )
+        return batch.replace(
+            global_target=np.concatenate([global_sup, global_qry], axis=1)
+        )
+
+    def _build_index_batch(self, plans: List[EpisodeIndices]):
+        """Index twin of ``_build_batch``: the same episodes, with bank row
+        ids as payload."""
+        ds = self.dataset
+        starts = self._bank_starts
+        e = len(plans)
+        ws = self.way * self.shot
+        wq = self.way * self.query
+        support_idx = np.empty((e, ws), dtype=np.int32)
+        global_sup = np.empty((e, ws), dtype=np.int32)
+        global_qry = np.empty((e, wq), dtype=np.int32)
+        seg_ids: List[int] = []
+        repeats = np.empty((e, wq), dtype=np.int64)
+        for i, plan in enumerate(plans):
+            s = q = 0
+            for w, cls in enumerate(plan.classes):
+                for k in plan.support[w]:
+                    for _ in range(self.augment_times):
+                        support_idx[i, s] = starts[cls][k]  # segment 0
+                        global_sup[i, s] = cls + ds.class_offset
+                        s += 1
+                for k in plan.query[w]:
+                    n = ds.clips[cls][k].shape[0]
+                    seg_ids.extend(range(starts[cls][k], starts[cls][k] + n))
+                    repeats[i, q] = n
+                    global_qry[i, q] = cls + ds.class_offset
+                    q += 1
+        return pack_ragged_episode_indices(
+            support_idx, np.asarray(seg_ids, dtype=np.int32),
+            repeats.reshape(-1), self.way, self.shot, self.query,
+            bucket_sizes=self.segment_bucket_sizes,
+            global_target=np.concatenate([global_sup, global_qry], axis=1),
+        )
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[Any]:
+        plans_iter = self.sampler.epoch(epoch_idx)
+        if self.prefetch <= 0:
+            for plans in plans_iter:
+                yield self._build_batch(plans)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Bounded put that gives up once the consumer abandoned the
+            generator (else the worker blocks on a full queue forever)."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for plans in plans_iter:
+                    if not put(self._build_batch(plans)):
+                        return
+                put(sentinel)
+            except BaseException as exc:  # handed to the consumer, which raises it
+                put(exc)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=5.0)
+
+    def __iter__(self) -> Iterator[EpisodeBatch]:
+        return self.epoch(0)
+
+
+def get_dataloader(
+    config: Dict[str, Any],
+    mode: str,
+    model_type: ModelType = ModelType.METRIC,
+    distribute: bool = False,
+    modality: str = "audio",
+) -> List[EpisodicLoader]:
+    """A list of loaders (one for eval), as the JAX package's surface."""
+    if mode == "train":
+        raise NotImplementedError("training loaders come with the port's training slice")
+    atq = int(config.get("augment_times_query", 1) or 1)
+    if atq != 1:
+        raise ValueError(
+            f"augment_times_query={atq} is not supported: every shipped "
+            "config sets 1 (config/headers/data.yaml)"
+        )
+    dataset = build_dataset(config, mode)
+    seed = int(config.get("seed", 0))
+    prefetch = int(config.get("prefetch", 2))
+    if str(config.get("workers", 1)) in ("0", "0.0"):
+        prefetch = 0
+    ep_size = int(config.get("episode_size", 1))
+    if config.get("test_episode_size"):
+        ep_size = int(config["test_episode_size"])
+    buckets = config.get("segment_bucket_sizes")
+    return [
+        EpisodicLoader(
+            dataset,
+            way=config.get("test_way") or config["way_num"],
+            shot=config.get("test_shot") or config["shot_num"],
+            query=config.get("test_query") or config["query_num"],
+            episodes_per_epoch=int(config.get("test_episode", 600)),
+            episode_size=ep_size,
+            mode=mode,
+            seed=seed + 1000 * _SPLIT_INDEX[mode],
+            segment_bucket_sizes=tuple(buckets) if buckets else None,
+            prefetch=prefetch,
+            augment_times=int(config.get("augment_times", 1)),
+        )
+    ]

@@ -1,0 +1,107 @@
+"""Fused BDC pool: wrapper of the hand-written CUDA kernel ``csrc/bdc_pool.cu``.
+
+Replaces the Pallas TPU kernel ``audio_fewshot_tpu/ops/bdc_pallas.py``
+(``_bdc_kernel`` / ``bdc_pool_fused``), followed by ``triuvec``.
+
+Bound on an H100 SXM at B = 1200, d = 64, M = 304: the gram is symmetric
+and only its upper triangle is written, so the function needs B·d(d+1)·M
+≈ 1.5 GFLOP of fp32 work (67 TFLOP/s on the CUDA cores → 23 µs), and it
+moves ≈ 103 MB (x read once, the upper triangle written once; 3.35 TB/s →
+31 µs).  So at d = 64 it is bound by memory traffic, not by arithmetic.
+The first design does not reach either limit: each block computes the full
+gram with plain FMAs out of shared memory, twice the work the function
+needs.  Computing half the gram, wider shared-memory loads, and streaming x
+so the loads overlap the FMAs are the options for making it fast.
+
+On a CPU tensor the wrapper runs the plain version (``ops/bdc.py``); on a
+CUDA tensor it launches the kernel or raises.  ``launches`` counts kernel
+launches.  There is no backward: the wrapper refuses inputs that require
+grad while grad is enabled.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple, Union
+
+import torch
+
+from .bdc import bdc_pool, triuvec
+from .build import build_library
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bdc_pool.cu"
+MAX_DIM = 128
+
+#: number of kernel launches since the last reset (set to 0 to reset)
+launches = 0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    lib = ctypes.CDLL(str(build_library("bdc_pool", [SOURCE])))
+    lib.bdc_pool_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.bdc_pool_launch.restype = ctypes.c_int
+    return lib
+
+
+def check_kernel_inputs(x: torch.Tensor, log_t: torch.Tensor) -> None:
+    """Raise on what the kernel does not take."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, d, M], got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32 or log_t.dtype != torch.float32:
+        raise TypeError(
+            f"bdc_pool kernel takes float32, got x {x.dtype}, log_t {log_t.dtype}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if log_t.numel() != 1:
+        raise ValueError(f"log_t must hold one value, got shape {tuple(log_t.shape)}")
+    if log_t.device != x.device:
+        raise ValueError(f"log_t on {log_t.device} but x on {x.device}")
+    if not 1 <= x.shape[1] <= MAX_DIM:
+        raise ValueError(f"bdc_pool kernel supports 1 <= d <= {MAX_DIM}, got d={x.shape[1]}")
+    if x.shape[2] < 1:
+        raise ValueError("x must have M >= 1 positions")
+    if torch.is_grad_enabled() and (x.requires_grad or log_t.requires_grad):
+        raise RuntimeError(
+            "bdc_pool kernel has no backward yet: call it under torch.no_grad()"
+        )
+
+
+def bdc_pool_triu(
+    x: torch.Tensor, log_t: torch.Tensor, return_full: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """``[B, d, M]`` → ``triuvec(bdc_pool(x, log_t))`` of shape
+    ``[B, d(d+1)/2]``; with ``return_full`` also the ``[B, d, d]`` matrix."""
+    global launches
+    if x.device.type == "cpu":
+        mat = bdc_pool(x, log_t)
+        tri = triuvec(mat)
+        return (tri, mat) if return_full else tri
+    if x.device.type != "cuda":
+        raise ValueError(f"bdc_pool_triu runs on cpu or cuda, not {x.device}")
+    check_kernel_inputs(x, log_t)
+    b, d, m = x.shape
+    tri = torch.empty((b, d * (d + 1) // 2), dtype=torch.float32, device=x.device)
+    full: Optional[torch.Tensor] = (
+        torch.empty((b, d, d), dtype=torch.float32, device=x.device)
+        if return_full else None
+    )
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.bdc_pool_launch(
+            x.data_ptr(), log_t.data_ptr(), tri.data_ptr(),
+            full.data_ptr() if full is not None else None,
+            b, d, m, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bdc_pool kernel launch failed with CUDA error {err}")
+    if b > 0:
+        launches += 1
+    return (tri, full) if return_full else tri

@@ -1,0 +1,69 @@
+"""Build hand-written CUDA sources into shared libraries with ``nvcc``.
+
+Each library has a plain C interface and is loaded with ``ctypes``.  It is
+built at first use from the package's ``csrc/`` sources into
+``build/kernels/`` beside the package; the file name carries a hash of the
+sources and flags, so an edited source builds anew and an unchanged one is
+reused.  ``nvcc``'s output (the ``-Xptxas -v`` register and shared-memory
+report) is kept beside the library as ``<name>.log``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Sequence
+
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``; raises
+    ``FileNotFoundError`` if neither exists."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates.append(shutil.which("nvcc"))
+    for cand in candidates:
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise FileNotFoundError(
+        "nvcc not found: set CUDA_HOME or put nvcc on PATH to build the "
+        "CUDA kernels"
+    )
+
+
+def build_library(name: str, sources: Sequence[Path]) -> Path:
+    """Path of ``lib<name>-<hash>.so`` built from ``sources`` (reused when
+    already built)."""
+    sources = [Path(s) for s in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        capture_output=True, text=True,
+    )
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed building {name} (exit {proc.returncode}):\n"
+            f"{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out

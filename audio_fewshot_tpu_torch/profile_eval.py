@@ -1,0 +1,88 @@
+"""Where the time of the eval step goes on the card.
+
+    python -m audio_fewshot_tpu_torch.profile_eval [--steps 4]
+
+Builds the eval cell of ``eval.slice_config`` (DeepBDC + resnet12Bdc,
+[1, 128, 157] segments, 16 episodes per step, bf16) through ``Test``, warms
+up, then runs ``--steps`` eval steps under ``torch.profiler`` and prints the
+device time by kernel category and the top kernels, the device-busy share
+of the window, and the step time.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .eval import Test, slice_config
+
+# first matching substring of the kernel name decides its category
+CATEGORIES = (
+    ("bdc_pool kernel", ("bdc_pool_kernel",)),
+    ("layout transpose", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("convolution", ("conv", "xmma", "fprop", "implicit", "wgrad", "dgrad", "cudnn")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw")),
+    ("max pool", ("max_pool",)),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("gather / copy", ("index", "gather", "copy", "cat")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=4)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_eval: no CUDA device is available", file=sys.stderr)
+        return 1
+    cfg = slice_config(test_episode=16 * args.steps, test_epoch=1)
+    test = Test(0, cfg, None, device="cuda")
+    batches = list(test.test_loader[0].epoch(0))
+    test._eval_step(batches[0]).cpu()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for batch in batches:
+            test._eval_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+
+    by_cat = defaultdict(float)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        kernels.append((us, evt.count, evt.key))
+        by_cat[category(evt.key)] += us
+    busy = sum(by_cat.values())
+    print(f"device {torch.cuda.get_device_name(0)}; {len(batches)} steps of "
+          f"{cfg['test_episode_size']} episodes; wall {wall_us / 1e3:.1f} ms "
+          f"({wall_us / 1e3 / len(batches):.1f} ms/step); device busy "
+          f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} % of wall)")
+    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:18s} {us / 1e3:10.2f} ms  {100 * us / max(busy, 1e-9):5.1f} %")
+    print("top kernels (device ms, calls, name):")
+    for us, count, name in sorted(kernels, reverse=True)[:15]:
+        print(f"  {us / 1e3:10.2f} {count:6d}  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,77 @@
+"""JAX package variables → the port's state dict.
+
+The port's own copy of ``_invert_resnet12`` / ``_invert_resnet12bdc`` in
+``audio_fewshot_tpu/utils/torch_convert.py``: flax conv kernels HWIO → torch
+OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
+(batch_stats) → ``weight``/``bias``/``running_mean``/``running_var``.  The
+variables arrive as nested dicts of numpy arrays, so this module needs no
+JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _conv(w) -> np.ndarray:
+    """flax Conv [kh, kw, I, O] → torch Conv2d [O, I, kh, kw]."""
+    return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def _bn(state: Dict[str, np.ndarray], key: str, params: Dict, stats: Dict) -> None:
+    state[key + ".weight"] = np.asarray(params["scale"])
+    state[key + ".bias"] = np.asarray(params["bias"])
+    state[key + ".running_mean"] = np.asarray(stats["mean"])
+    state[key + ".running_var"] = np.asarray(stats["var"])
+    state[key + ".num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+
+
+def _resnet12(params, stats, state) -> None:
+    for i in range(1, 5):
+        blk = f"layer{i}.0"
+        p, s = params[f"layer{i}"], stats[f"layer{i}"]
+        for j in range(1, 4):
+            state[f"{blk}.conv{j}.weight"] = _conv(p[f"conv{j}"]["kernel"])
+            _bn(state, f"{blk}.bn{j}", p[f"bn{j}"]["BatchNorm_0"], s[f"bn{j}"]["BatchNorm_0"])
+        if "downsample_conv" in p:
+            state[f"{blk}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
+            _bn(state, f"{blk}.downsample.1",
+                p["downsample_bn"]["BatchNorm_0"], s["downsample_bn"]["BatchNorm_0"])
+
+
+def _resnet12bdc(params, stats, state) -> None:
+    _resnet12(params, stats, state)
+    head_p, head_s = params["bdc_pool"], stats.get("bdc_pool", {})
+    if "reduce_conv" in head_p:
+        state["bdc_pool.conv_dr_block.0.weight"] = _conv(head_p["reduce_conv"]["kernel"])
+        _bn(state, "bdc_pool.conv_dr_block.1",
+            head_p["reduce_bn"]["BatchNorm_0"], head_s["reduce_bn"]["BatchNorm_0"])
+    state["bdc_pool.temperature"] = np.asarray(head_p["log_temperature"])
+
+
+_CONVERTERS = {"resnet12Bdc": _resnet12bdc}
+
+
+def state_dict_from_jax(
+    variables: Dict[str, Any], backbone_name: str, prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """Backbone state dict from the JAX package's variable tree.
+
+    ``variables``: ``{"params": {"emb_func": ...}, "batch_stats": {...}}`` or
+    an already-sliced backbone tree, as nested dicts of numpy arrays.  Keys
+    get ``prefix`` (``"emb_func."`` for a whole method)."""
+    if backbone_name not in _CONVERTERS:
+        raise KeyError(
+            f"no converter for backbone {backbone_name!r}; supported: {sorted(_CONVERTERS)}"
+        )
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if "emb_func" in params:
+        params = params["emb_func"]
+        stats = stats.get("emb_func", {})
+    state: Dict[str, np.ndarray] = {}
+    _CONVERTERS[backbone_name](params, stats, state)
+    return {prefix + k: torch.from_numpy(np.array(v)) for k, v in state.items()}
