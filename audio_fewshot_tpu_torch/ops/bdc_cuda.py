@@ -3,15 +3,20 @@
 Replaces the Pallas TPU kernel ``audio_fewshot_tpu/ops/bdc_pallas.py``
 (``_bdc_kernel`` / ``bdc_pool_fused``), followed by ``triuvec``.
 
-Bound on an H100 SXM at B = 1200, d = 64, M = 304: the gram is symmetric
-and only its upper triangle is written, so the function needs B·d(d+1)·M
-≈ 1.5 GFLOP of fp32 work (67 TFLOP/s on the CUDA cores → 23 µs), and it
-moves ≈ 103 MB (x read once, the upper triangle written once; 3.35 TB/s →
-31 µs).  So at d = 64 it is bound by memory traffic, not by arithmetic.
-The first design does not reach either limit: each block computes the full
-gram with plain FMAs out of shared memory, twice the work the function
-needs.  Computing half the gram, wider shared-memory loads, and streaming x
-so the loads overlap the FMAs are the options for making it fast.
+Bound on an H100 SXM at d = 64, M = 304: the gram is symmetric and only its
+upper triangle is written, so the function needs B·d(d+1)·M FLOPs and moves
+x once in and the upper triangle once out; the bytes take longer (3.35 TB/s)
+than the operations, so it is bound by memory traffic.  The kernel is built
+around that stream: persistent blocks walk the batch, x arrives through a
+ring of shared-memory stages filled by the TMA unit from a ``[B][d][M]``
+tensor map with the 128-byte swizzle (by 4-byte ``cp.async`` when x is not
+16-byte aligned, i.e. M not a multiple of 4), only the gram's upper 16×8
+units are computed, on the tensor cores by a three-pass split-TF32
+``mma.sync`` that keeps fp32 accuracy, and an epilogue with a warp per row
+writes each triu row as one contiguous run.  ``ops/bdc.py::gram_split_tf32``
+repeats that arithmetic in plain PyTorch;
+``python -m audio_fewshot_tpu_torch.profile_bdc_pool`` shows where the
+kernel's time goes.
 
 On a CPU tensor the wrapper runs the plain version (``ops/bdc.py``); on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts kernel
@@ -39,9 +44,16 @@ launches = 0
 
 
 @functools.cache
+def library_path() -> Path:
+    """The kernel's shared library, built at first use; ``nvcc``'s report
+    lies beside it as ``.log``."""
+    return build_library("bdc_pool", [SOURCE])
+
+
+@functools.cache
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
-    lib = ctypes.CDLL(str(build_library("bdc_pool", [SOURCE])))
+    lib = ctypes.CDLL(str(library_path()))
     lib.bdc_pool_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

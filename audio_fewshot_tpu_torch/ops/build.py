@@ -22,6 +22,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    "-ldl",  # kernels look libcuda's tensor-map encoder up with dlsym
 )
 
 
@@ -40,11 +41,15 @@ def find_nvcc() -> str:
     )
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Path:
+def build_library(
+    name: str, sources: Sequence[Path], extra_flags: Sequence[str] = ()
+) -> Path:
     """Path of ``lib<name>-<hash>.so`` built from ``sources`` (reused when
-    already built)."""
+    already built).  ``extra_flags`` (``-D...``) come after ``NVCC_FLAGS``
+    and are part of the hash."""
     sources = [Path(s) for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *extra_flags)
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -55,7 +60,7 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        [nvcc, *flags, "-o", str(tmp), *map(str, sources)],
         capture_output=True, text=True,
     )
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)

@@ -2,7 +2,9 @@
 against the XLA ``bdc_pool`` and the Pallas ``bdc_pool_fused`` (interpret
 mode), the ``triuvec`` order, and the CUDA kernel's wrapper and build helper
 as far as they run without a card.  The kernel itself is held against the
-plain version on the card by ``chip_smoke.py``."""
+plain version and against float64 on the card by ``chip_smoke.py``; here the
+plain emulation of its split-TF32 arithmetic (``gram_split_tf32``) bounds the
+error of its design."""
 
 import os
 import stat
@@ -19,7 +21,15 @@ from audio_fewshot_tpu.ops.bdc import triu_indices_flat as jax_triu_indices_flat
 from audio_fewshot_tpu.ops.bdc import triuvec as jax_triuvec  # noqa: E402
 from audio_fewshot_tpu.ops.bdc_pallas import bdc_pool_fused  # noqa: E402
 from audio_fewshot_tpu_torch.ops import bdc_cuda, build  # noqa: E402
-from audio_fewshot_tpu_torch.ops.bdc import bdc_pool, triu_indices_flat, triuvec  # noqa: E402
+from audio_fewshot_tpu_torch.ops.bdc import (  # noqa: E402
+    bdc_from_gram,
+    bdc_pool,
+    gram_split_tf32,
+    round_tf32,
+    truncate_tf32,
+    triu_indices_flat,
+    triuvec,
+)
 
 # float32 throughout; the gram sums 304 products in another order than XLA
 ATOL = 5e-4
@@ -38,6 +48,96 @@ def test_plain_bdc_matches_jax_xla_and_pallas(shape, log_t, seed):
     pallas = np.asarray(bdc_pool_fused(jnp.asarray(x), jnp.asarray(lt), interpret=True))
     np.testing.assert_allclose(ours, xla, atol=ATOL)
     np.testing.assert_allclose(ours, pallas, atol=ATOL)
+
+
+def bdc_pool_split_tf32(x, log_t):
+    """The BDC pool on the gram as the CUDA kernel computes it."""
+    return bdc_from_gram(gram_split_tf32(x), log_t)
+
+
+@pytest.mark.parametrize(
+    "shape,log_t,seed",
+    [((4, 64, 304), float(np.log(1 / 608.0)), 0), ((2, 16, 45), 0.0, 1)],
+)
+def test_split_tf32_bdc_matches_jax_xla_and_pallas(shape, log_t, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    lt = np.float32(log_t)
+    ours = bdc_pool_split_tf32(torch.from_numpy(x), torch.tensor(lt)).numpy()
+    xla = np.asarray(jax_bdc_pool(jnp.asarray(x), jnp.asarray(lt)))
+    pallas = np.asarray(bdc_pool_fused(jnp.asarray(x), jnp.asarray(lt), interpret=True))
+    np.testing.assert_allclose(ours, xla, atol=ATOL)
+    np.testing.assert_allclose(ours, pallas, atol=ATOL)
+
+
+def _adversarial(kind, shape, seed):
+    """Inputs on which the gram's rounding shows most in the BDC matrix."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(np.float32)
+    if kind == "post_relu":  # what BdcHead feeds the pool: >= 0, many exact zeros
+        return np.maximum(x - np.float32(0.5), np.float32(0.0))
+    if kind == "near_duplicate_rows":  # distances that cancel to (almost) nothing
+        x[:, 1] = x[:, 0]
+        x[:, 3] = x[:, 2] * np.float32(1 + 1e-4)
+        x[:, 5] = x[:, 4] + np.float32(1e-3) * rng.normal(size=x[:, 4].shape).astype(np.float32)
+        x[:, -1] = x[:, 7]
+        return x
+    if kind == "times_30":
+        return x * np.float32(30.0)
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("impl", ["plain", "split_tf32"])
+@pytest.mark.parametrize("kind", ["post_relu", "near_duplicate_rows", "times_30"])
+def test_bdc_against_float64(kind, impl):
+    """Both float32 routes against the same formula in float64.  A float32
+    gram of M = 304 unit-scale products is off by ~1e-4 absolute; where two
+    rows nearly coincide, dist2 cancels to ~0 and that error passes through
+    sqrt(t * dist2 + 1e-5) at slope t / (2 sqrt(1e-5)) ~ 0.26 (t = 1/608),
+    so up to ~1e-4 is expected there (measured: plain 8e-5, split 1.2e-4 over
+    three seeds) and ~1e-5 or less elsewhere.  The limit is the 5e-4 the
+    port holds against the JAX package."""
+    shape = (4, 64, 304)
+    x = torch.from_numpy(_adversarial(kind, shape, seed=3))
+    log_t = torch.tensor(np.float32(np.log(1.0 / (2 * shape[2]))))
+    x64 = x.double()
+    truth = bdc_from_gram(x64 @ x64.mT, log_t)
+    assert truth.dtype == torch.float64
+    ours = (bdc_pool if impl == "plain" else bdc_pool_split_tf32)(x, log_t)
+    assert ours.dtype == torch.float32
+    assert (ours.double() - truth).abs().max().item() <= ATOL
+
+
+def test_round_tf32_is_round_to_nearest_ties_away():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.normal(size=4096) * 10.0 ** rng.integers(-6, 6, 4096)).astype(np.float32))
+    hi = round_tf32(x)
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()  # 10 mantissa bits
+    assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 0.0])
+    torch.testing.assert_close(
+        round_tf32(tie), torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 0.0]),
+        rtol=0, atol=0,
+    )
+    # hi + tf32(x - hi) keeps 21 bits of x even with lo only truncated:
+    # what the three-pass product relies on
+    lo = truncate_tf32(x - hi)
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((hi.double() + lo.double() - x.double()).abs() <= x.abs().double() * 2.0 ** -21).all()
+
+
+def test_split_tf32_gram_is_as_close_to_float64_as_the_float32_gram():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 304)).astype(np.float32))
+    truth = x.double() @ x.double().mT
+    err_split = (gram_split_tf32(x).double() - truth).abs().max().item()
+    err_fp32 = (torch.matmul(x, x.mT).double() - truth).abs().max().item()
+    hi = round_tf32(x)
+    err_one_pass = (torch.matmul(hi, hi.mT).double() - truth).abs().max().item()
+    # ~2^-22 per product: the same order as fp32 summation, and two orders
+    # below a single TF32 pass (2^-11 per operand)
+    assert err_split <= 4 * err_fp32 and err_split <= 1e-3
+    assert err_one_pass >= 20 * err_split
 
 
 @pytest.mark.parametrize("d", [1, 5, 64])
@@ -102,6 +202,27 @@ def test_kernel_input_checks_accept_the_supported_range():
         )
 
 
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 17, 33), (2, 100, 77), (2, 64, 6), (1, 16, 1), (2, 48, 304), (2, 128, 45)],
+    ids=lambda s: "x".join(map(str, s)),
+)
+def test_wrapper_domain_odd_m_and_odd_d(shape):
+    """What the kernel's load path distinguishes (M a multiple of 4 or not)
+    and what its tiles pad (d a multiple of 16 or not) is all inside the
+    wrapper's domain, and the triu order holds at each shape."""
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    log_t = torch.full((1, 1), -2.0)
+    bdc_cuda.check_kernel_inputs(x, log_t)
+    tri, full = bdc_cuda.bdc_pool_triu(x, log_t, return_full=True)
+    d = shape[1]
+    assert tri.shape == (shape[0], d * (d + 1) // 2) and full.shape == (shape[0], d, d)
+    iu = np.triu_indices(d)
+    np.testing.assert_array_equal(tri.numpy(), full.numpy()[:, iu[0], iu[1]])
+    np.testing.assert_allclose(bdc_pool_split_tf32(x, log_t).numpy(), full.numpy(), atol=ATOL)
+
+
 def test_kernel_source_ships_with_a_c_entry():
     text = bdc_cuda.SOURCE.read_text()
     assert 'extern "C" int bdc_pool_launch' in text
@@ -158,6 +279,33 @@ def test_build_caches_by_source_hash(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", "")
     assert build.find_nvcc() == os.path.join(str(tmp_path), "bin", "nvcc")
+
+
+def test_build_extra_flags_make_a_library_of_their_own(monkeypatch, tmp_path):
+    nvcc = _fake_nvcc(tmp_path)
+    _isolate_toolkit(monkeypatch, tmp_path, nvcc.parent)
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    plain = build.build_library("k", [src])
+    profiled = build.build_library("k", [src], extra_flags=("-DK_PROFILE",))
+    assert profiled != plain and profiled.is_file() and plain.is_file()
+    assert build.build_library("k", [src], extra_flags=("-DK_PROFILE",)) == profiled
+    assert (tmp_path / "calls").read_text().count("call") == 2
+
+
+def test_kernel_source_keeps_its_phase_clocks_out_of_the_default_build():
+    """The phase clocks and the mma-rate probe of ``profile_bdc_pool`` exist
+    only under ``BDC_POOL_PROFILE``: with the macro undefined the source has
+    the launch and nothing else ``extern "C"``; the profiler reads the shape
+    of the clocks from the build that counts them."""
+    text = bdc_cuda.SOURCE.read_text()
+    default_build, _, profiled = text.rpartition("#ifdef BDC_POOL_PROFILE")
+    assert default_build.count('extern "C"') == 1
+    for entry in ("bdc_pool_phase_shape", "bdc_pool_read_phases", "bdc_pool_mma_rate"):
+        assert entry in profiled and entry not in default_build
+    profiler = (bdc_cuda.SOURCE.parents[1] / "profile_bdc_pool.py").read_text()
+    assert "bdc_pool_phase_shape" in profiler
+    assert "#define PHASE_END(k)\n" in text  # the empty definition
 
 
 def test_build_failure_leaves_no_library(monkeypatch, tmp_path):
