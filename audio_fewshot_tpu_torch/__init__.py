@@ -9,9 +9,13 @@ Layer map:
   data        — episodic sampler, spectrogram datasets, device segment bank
   episode     — dense masked episode batches (clip id + mask for ragged clips)
   models      — resnet12Bdc backbone (nn.Module) + DeepBDC head
-  ops         — BDC pool: plain PyTorch version and hand-written CUDA kernel
+  ops         — BDC pool: plain PyTorch version and hand-written CUDA kernels
+                (forward and backward); train-time spectrogram augmentations
+  optim       — torch.optim groups and per-epoch LR schedules
+  train       — episodic trainer: train, val, test, checkpoints, resume
   eval        — episodic test harness with the energy calibration pass
-  utils       — aggregation, weight conversion, checkpoint, logging, seeding
+  utils       — aggregation, weight conversion, checkpoints, meters,
+                logging, seeding
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,16 @@
-"""Episodic eval loaders and ``get_dataloader`` (counterpart of
-``audio_fewshot_tpu/data/loader.py``, eval mode).
+"""Episodic loaders and ``get_dataloader`` (counterpart of
+``audio_fewshot_tpu/data/loader.py``).
 
-Val/test batches: support clips contribute their first segment; query clips
-contribute ALL their segments, packed into a bucketed, masked query axis.
-A background thread builds numpy batches while the device computes.  With a
-segment bank (``data/bank.py``) the loader emits bank row ids instead of
-payloads.  Training batches come with the training slice.
+- train: every clip contributes ONE random segment, giving a fully dense
+  batch (``G == W*Q``, mask all ones);
+- val/test: support clips contribute their first segment; query clips
+  contribute ALL their segments, packed into a bucketed, masked query axis.
+
+The per-epoch numpy generator draws in the same order as the JAX package, so
+both packages build the same episodes from a seed.  A background thread
+builds numpy batches while the device computes.  With a segment bank
+(``data/bank.py``) the loader emits bank row ids instead of payloads.
+Flat (FINETUNING) and dual loaders are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import numpy as np
 
 from ..episode import (
     EpisodeBatch,
+    IndexedEpisodeBatch,
+    local_targets,
+    make_dense_episode_batch,
     pack_ragged_episode_batch,
     pack_ragged_episode_indices,
 )
@@ -123,7 +131,7 @@ def build_dataset(config: Dict[str, Any], mode: str) -> SpectrogramDataset:
 
 
 class EpisodicLoader:
-    """Iterable over epochs of eval ``EpisodeBatch``es, with background
+    """Iterable over epochs of ``EpisodeBatch``es, with background
     prefetch."""
 
     def __init__(
@@ -140,10 +148,6 @@ class EpisodicLoader:
         prefetch: int = 2,
         augment_times: int = 1,
     ):
-        if mode == "train":
-            raise NotImplementedError(
-                "training batches come with the port's training slice"
-            )
         self.dataset = dataset
         self.way, self.query = way, query
         #: emit ``IndexedEpisodeBatch``es of bank row ids (see ``use_segment_bank``)
@@ -176,7 +180,37 @@ class EpisodicLoader:
         self._bank_starts = self.dataset.bank_starts()
         self.emit_indices = True
 
-    def _build_batch(self, plans: List[EpisodeIndices]):
+    def _train_slots(self, plans: List[EpisodeIndices], rng: np.random.Generator):
+        """``(class, clip, segment)`` of every support and query slot of a
+        dense train batch, ``[E, W*S, 3]`` and ``[E, W*Q, 3]``, and the
+        global targets.  One random segment per clip (per copy for support
+        clips repeated ``augment_times`` times), drawn in the JAX package's
+        order."""
+        ds = self.dataset
+        e = len(plans)
+        sup = np.empty((e, self.way * self.shot, 3), dtype=np.int64)
+        qry = np.empty((e, self.way * self.query, 3), dtype=np.int64)
+
+        def draw(cls, k):
+            n = ds.clips[cls][k].shape[0]
+            return (cls, k, int(rng.integers(n)) if n > 1 else 0)
+
+        for i, plan in enumerate(plans):
+            s = q = 0
+            for w, cls in enumerate(plan.classes):
+                for k in plan.support[w]:
+                    for _ in range(self.augment_times):
+                        sup[i, s] = draw(cls, k)
+                        s += 1
+                for k in plan.query[w]:
+                    qry[i, q] = draw(cls, k)
+                    q += 1
+        targets = np.concatenate([sup[..., 0], qry[..., 0]], axis=1) + ds.class_offset
+        return sup, qry, targets.astype(np.int32)
+
+    def _build_batch(self, plans: List[EpisodeIndices], rng: np.random.Generator):
+        if self.mode == "train":
+            return self._build_train_batch(plans, rng)
         if self.emit_indices:
             return self._build_index_batch(plans)
         ds = self.dataset
@@ -211,6 +245,32 @@ class EpisodicLoader:
         return batch.replace(
             global_target=np.concatenate([global_sup, global_qry], axis=1)
         )
+
+    def _build_train_batch(self, plans: List[EpisodeIndices], rng: np.random.Generator):
+        """Dense train batch (``G == W*Q``, mask all ones), as segment
+        payloads or, with a bank, as bank row ids; the same draws either way."""
+        ds = self.dataset
+        sup, qry, targets = self._train_slots(plans, rng)
+        if self.emit_indices:
+            starts = self._bank_starts
+            rows = lambda slots: np.asarray(
+                [[starts[c][k] + o for c, k, o in ep] for ep in slots], dtype=np.int32)
+            e, wq = qry.shape[:2]
+            return IndexedEpisodeBatch(
+                support_idx=rows(sup),
+                query_idx=rows(qry),
+                query_clip=np.broadcast_to(np.arange(wq, dtype=np.int32), (e, wq)),
+                query_mask=np.ones((e, wq), dtype=np.float32),
+                support_target=np.broadcast_to(
+                    local_targets(self.way, self.shot), (e, self.way * self.shot)),
+                query_target=np.broadcast_to(local_targets(self.way, self.query), (e, wq)),
+                global_target=targets,
+            )
+        payload = lambda slots: ds.normalize(np.stack(
+            [np.stack([ds.clips[c][k][o] for c, k, o in ep]) for ep in slots]
+        ).astype(np.float32))
+        return make_dense_episode_batch(payload(sup), payload(qry), self.way, self.shot,
+                                        self.query, global_target=targets)
 
     def _build_index_batch(self, plans: List[EpisodeIndices]):
         """Index twin of ``_build_batch``: the same episodes, with bank row
@@ -247,10 +307,12 @@ class EpisodicLoader:
         )
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[Any]:
+        # segment draws of train batches (eval batches draw nothing)
+        rng = np.random.default_rng((self.sampler.seed, epoch_idx, 13))
         plans_iter = self.sampler.epoch(epoch_idx)
         if self.prefetch <= 0:
             for plans in plans_iter:
-                yield self._build_batch(plans)
+                yield self._build_batch(plans, rng)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -271,7 +333,7 @@ class EpisodicLoader:
         def worker():
             try:
                 for plans in plans_iter:
-                    if not put(self._build_batch(plans)):
+                    if not put(self._build_batch(plans, rng)):
                         return
                 put(sentinel)
             except BaseException as exc:  # handed to the consumer, which raises it
@@ -302,9 +364,18 @@ def get_dataloader(
     distribute: bool = False,
     modality: str = "audio",
 ) -> List[EpisodicLoader]:
-    """A list of loaders (one for eval), as the JAX package's surface."""
-    if mode == "train":
-        raise NotImplementedError("training loaders come with the port's training slice")
+    """A list of loaders (one episodic loader), as the JAX package's
+    surface."""
+    if mode == "train" and model_type == ModelType.FINETUNING:
+        raise NotImplementedError(
+            "flat FINETUNING train loaders (FlatLoader) are not ported yet "
+            "(ROADMAP Queue A, finetuning family)"
+        )
+    if mode == "train" and int(config.get("dataloader_num", 1)) > 1:
+        raise NotImplementedError(
+            "dataloader_num > 1 (the dual episodic + flat loader) is not "
+            "ported yet (ROADMAP Queue A, RENet)"
+        )
     atq = int(config.get("augment_times_query", 1) or 1)
     if atq != 1:
         raise ValueError(
@@ -316,17 +387,25 @@ def get_dataloader(
     prefetch = int(config.get("prefetch", 2))
     if str(config.get("workers", 1)) in ("0", "0.0"):
         prefetch = 0
+    if mode == "train":
+        way, shot, query_n = config["way_num"], config["shot_num"], config["query_num"]
+        episodes = int(config.get("train_episode", 500))
+    else:
+        way = config.get("test_way") or config["way_num"]
+        shot = config.get("test_shot") or config["shot_num"]
+        query_n = config.get("test_query") or config["query_num"]
+        episodes = int(config.get("test_episode", 600))
     ep_size = int(config.get("episode_size", 1))
-    if config.get("test_episode_size"):
+    if mode != "train" and config.get("test_episode_size"):
         ep_size = int(config["test_episode_size"])
     buckets = config.get("segment_bucket_sizes")
     return [
         EpisodicLoader(
             dataset,
-            way=config.get("test_way") or config["way_num"],
-            shot=config.get("test_shot") or config["shot_num"],
-            query=config.get("test_query") or config["query_num"],
-            episodes_per_epoch=int(config.get("test_episode", 600)),
+            way=way,
+            shot=shot,
+            query=query_n,
+            episodes_per_epoch=episodes,
             episode_size=ep_size,
             mode=mode,
             seed=seed + 1000 * _SPLIT_INDEX[mode],

@@ -40,6 +40,15 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     return CLASSIFIERS.build(config["classifier"]["name"], **cls_kwargs)
 
 
+def train_setting(config: Dict[str, Any]) -> EpisodeSetting:
+    """Train geometry; shot is inflated by augment_times."""
+    return EpisodeSetting(
+        way=config["way_num"],
+        shot=config["shot_num"] * config.get("augment_times", 1),
+        query=config["query_num"],
+    )
+
+
 def eval_setting(config: Dict[str, Any]) -> EpisodeSetting:
     """Eval geometry; shot is inflated by augment_times as in training."""
     return EpisodeSetting(
@@ -49,4 +58,5 @@ def eval_setting(config: Dict[str, Any]) -> EpisodeSetting:
     )
 
 
-__all__ = ["EpisodeSetting", "MethodBase", "ModelType", "build_method", "eval_setting"]
+__all__ = ["EpisodeSetting", "MethodBase", "ModelType", "build_method", "eval_setting",
+           "train_setting"]

@@ -6,8 +6,11 @@ State-dict keys are the reference torch names (``layer1.0.conv1.weight``,
 ``layer4.0.downsample.1.running_mean``, ``bdc_pool.conv_dr_block.0.weight``,
 ``bdc_pool.temperature``), so ``utils/convert.py`` maps the JAX package's
 variables onto them.  The four stages compute in ``dtype`` (bf16 by
-default); the BDC head always runs in float32.  DropBlock and dropout are
-train-only and come with the training slice; this module is eval-only.
+default); the BDC head always runs in float32.  Train mode uses batch
+statistics and updates the running ones (``layers.BatchNorm``) and sends the
+BDC gradient through the backward kernel on the card.  DropBlock
+(``drop_rate > 0``, which no DeepBDC config sets) is not ported yet and
+raises in train mode (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -113,10 +116,10 @@ class ResNet12BDC(nn.Module):
                 nn.init.zeros_(mod.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and self.drop_rate > 0:
             raise NotImplementedError(
-                "resnet12Bdc training (DropBlock, BDC backward) comes with the "
-                "port's training slice; call .eval()"
+                "resnet12Bdc DropBlock (drop_rate > 0) is not ported yet "
+                "(ROADMAP Queue A); train with drop_rate 0"
             )
         x = x.to(self.dtype)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))

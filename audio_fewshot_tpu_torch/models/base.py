@@ -2,20 +2,24 @@
 
 A method is an ``nn.Module`` that owns the backbone as ``emb_func`` (so its
 ``state_dict`` keys are ``emb_func.<reference torch name>``) and maps an
-``EpisodeBatch`` of tensors to per-segment logits ``[E, G, way]``.
+``EpisodeBatch`` of tensors to per-segment logits ``[E, G, way]``.  The
+module's mode is the JAX package's ``train`` flag: in train mode ``embed``
+runs the backbone with batch statistics over the whole episode batch, and
+``loss`` returns the training loss with its logits and metrics.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..episode import EpisodeBatch
-from ..utils.aggregate import majority_vote
+from ..episode import EpisodeBatch, segment_targets
+from ..utils.aggregate import majority_vote, segment_accuracy
 
 
 class ModelType(enum.Enum):
@@ -32,6 +36,24 @@ class EpisodeSetting:
     way: int
     shot: int
     query: int
+
+
+@dataclass
+class LossOutput:
+    seg_logits: torch.Tensor  # [E, G, way]
+    metrics: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+def masked_cross_entropy(
+    seg_logits: torch.Tensor, seg_target: torch.Tensor, mask: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """Mean cross-entropy over the valid query segments."""
+    logp = F.log_softmax(seg_logits.float(), dim=-1)
+    nll = -logp.gather(-1, seg_target.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 class MethodBase(nn.Module):
@@ -64,6 +86,14 @@ class MethodBase(nn.Module):
 
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
         raise NotImplementedError
+
+    def loss(self, batch: EpisodeBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
+        """Training loss (the module in train mode) and its ``LossOutput``."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def train_metrics(self, seg_logits: torch.Tensor, batch: EpisodeBatch) -> Dict[str, torch.Tensor]:
+        return {"acc": segment_accuracy(seg_logits, segment_targets(batch), batch.query_mask)}
 
     def eval_episode_accuracy(self, seg_logits: torch.Tensor, batch: EpisodeBatch) -> torch.Tensor:
         """Per-episode clip-level majority-vote accuracy ``[E]`` in percent."""

@@ -9,8 +9,9 @@ machinery (counterpart of ``audio_fewshot_tpu/models/heads/deepbdc.py``).
   pooled 95 % quantile ('overall');
 - the top 20 % most-uncertain query clips are flagged OOD.
 
-The TTA re-vote that consumes the flags comes with a later slice; training
-(``loss``) with the training slice.
+- ``loss``: masked per-segment cross-entropy over the same logits.
+
+The TTA re-vote that consumes the flags comes with a later slice.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...episode import EpisodeBatch, materialize_episode_batch
+from ...episode import EpisodeBatch, materialize_episode_batch, segment_targets
 from ...registry import CLASSIFIERS
 from ...utils.aggregate import average_logits, majority_vote
-from ..base import EpisodeSetting, MethodBase, ModelType
+from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
 from .proto_net import neg_sq_euclidean, prototypes
 
 
@@ -53,6 +54,12 @@ class DeepBDC(MethodBase):
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
         sup, qry = self.embed(batch)
         return bdc_proto_logits(qry, sup, setting.way, setting.shot)
+
+    def loss(self, batch: EpisodeBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
+        sup, qry = self.embed(batch)
+        seg_logits = bdc_proto_logits(qry, sup, setting.way, setting.shot)
+        loss = masked_cross_entropy(seg_logits, segment_targets(batch), batch.query_mask)
+        return loss, LossOutput(seg_logits, self.train_metrics(seg_logits, batch))
 
     def feature_logits(self, sup_feat, qry_feat, setting: EpisodeSetting) -> torch.Tensor:
         """Head over precomputed features (the TTA re-classification hook)."""

@@ -3,10 +3,14 @@
 Counterpart of ``audio_fewshot_tpu/ops/bdc.py``: one batched gram product
 plus an elementwise/reduction epilogue.  This is the plain version of the
 CUDA kernel in ``ops/bdc_cuda.py``: the CPU runs it, and the card compares
-the kernel against it.
+the kernel against it.  ``bdc_pool_triu_vjp`` is the plain version of the
+backward kernel: autograd through ``bdc_pool`` and ``triuvec``;
+``bdc_pool_triu_vjp_direct`` repeats the backward kernel's own arithmetic.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -33,6 +37,49 @@ def bdc_pool(x: torch.Tensor, log_t: torch.Tensor) -> torch.Tensor:
     # full fp32: the gram feeds a sqrt of differences of near-identical
     # values, so TF32 rounding would put visible noise on the zero diagonal
     return bdc_from_gram(torch.matmul(x, x.transpose(-1, -2)), log_t)
+
+
+def bdc_pool_triu_vjp(x: torch.Tensor, log_t: torch.Tensor,
+                      grad_triu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of ``sum(grad_triu * triuvec(bdc_pool(x, log_t)))`` by x and
+    by ``log_t``, by autograd through the plain version (in x's dtype, so a
+    float64 x gives the float64 truth)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        lg = log_t.detach().to(x.dtype).requires_grad_(True)
+        gram = torch.matmul(xg, xg.transpose(-1, -2))
+        tri = triuvec(bdc_from_gram(gram, lg))
+        grad_x, grad_log_t = torch.autograd.grad(tri, (xg, lg), grad_triu.to(x.dtype))
+    return grad_x, grad_log_t.to(log_t.dtype)
+
+
+def bdc_pool_triu_vjp_direct(x: torch.Tensor, log_t: torch.Tensor,
+                             grad_triu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``bdc_pool_triu_vjp`` by the arithmetic of the
+    backward kernel (``csrc/bdc_pool_backward.cu``): squared distances
+    summed from the differences of rows (not from the gram), the symmetric
+    part of the centred incoming gradient, and x̄_i = 2 Σ_j S_ij (x_i − x_j).
+    It bounds the kernel's error without a card; nothing on the main path
+    calls it."""
+    b, d, _ = x.shape
+    t = torch.exp(log_t.to(x.dtype).reshape(()))
+    full = torch.zeros((b, d * d), dtype=x.dtype, device=x.device)
+    full[:, torch.from_numpy(triu_indices_flat(d)).to(x.device)] = grad_triu.to(x.dtype)
+    full = full.reshape(b, d, d)
+    ysym = full + full.transpose(-1, -2)
+    rows = ysym.sum(dim=-1)
+    dsym = (ysym - (rows[:, :, None] + rows[:, None, :]) / d
+            + (rows.sum(dim=-1) / d ** 2)[:, None, None])
+    grad_x = torch.empty_like(x)
+    grad_t = torch.zeros((), dtype=x.dtype, device=x.device)
+    for i in range(b):  # one element at a time: the differences are [d, d, M]
+        diff = x[i, :, None, :] - x[i, None, :, :]
+        dist2 = (diff * diff).sum(dim=-1)
+        s = torch.where(dist2 > 0, dsym[i] * t / (2.0 * torch.sqrt(t * dist2 + 1e-5)),
+                        torch.zeros_like(dist2))
+        grad_x[i] = 2.0 * (s[:, :, None] * diff).sum(dim=1)
+        grad_t = grad_t + 0.5 * (s * dist2).sum()
+    return grad_x, grad_t.reshape(log_t.shape).to(log_t.dtype)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,8 @@ from .eval import Test, slice_config
 # first matching substring of the kernel name decides its category
 CATEGORIES = (
     ("bdc_pool kernel", ("bdc_pool_kernel",)),
+    ("bdc_pool_backward kernel", ("bdc_pool_backward_kernel",)),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("layout transpose", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("convolution", ("conv", "xmma", "fprop", "implicit", "wgrad", "dgrad", "cudnn")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw")),
@@ -42,6 +44,27 @@ def category(name: str) -> str:
         if any(k in low for k in keys):
             return cat
     return "other"
+
+
+def report(prof, wall_us: float, header: str) -> None:
+    """Print the device time of a ``torch.profiler`` window by category,
+    the top kernels, and the device-busy share of the wall time."""
+    by_cat = defaultdict(float)
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        kernels.append((us, evt.count, evt.key))
+        by_cat[category(evt.key)] += us
+    busy = sum(by_cat.values())
+    print(f"device {torch.cuda.get_device_name(0)}; {header}; wall {wall_us / 1e3:.1f} ms; "
+          f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} % of wall)")
+    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:24s} {us / 1e3:10.2f} ms  {100 * us / max(busy, 1e-9):5.1f} %")
+    print("top kernels (device ms, calls, name):")
+    for us, count, name in sorted(kernels, reverse=True)[:15]:
+        print(f"  {us / 1e3:10.2f} {count:6d}  {name[:110]}")
 
 
 def main(argv=None) -> int:
@@ -62,25 +85,8 @@ def main(argv=None) -> int:
             test._eval_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-
-    by_cat = defaultdict(float)
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        kernels.append((us, evt.count, evt.key))
-        by_cat[category(evt.key)] += us
-    busy = sum(by_cat.values())
-    print(f"device {torch.cuda.get_device_name(0)}; {len(batches)} steps of "
-          f"{cfg['test_episode_size']} episodes; wall {wall_us / 1e3:.1f} ms "
-          f"({wall_us / 1e3 / len(batches):.1f} ms/step); device busy "
-          f"{busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f} % of wall)")
-    for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:18s} {us / 1e3:10.2f} ms  {100 * us / max(busy, 1e-9):5.1f} %")
-    print("top kernels (device ms, calls, name):")
-    for us, count, name in sorted(kernels, reverse=True)[:15]:
-        print(f"  {us / 1e3:10.2f} {count:6d}  {name[:110]}")
+    report(prof, wall_us, f"{len(batches)} eval steps of {cfg['test_episode_size']} episodes "
+           f"({wall_us / 1e3 / len(batches):.1f} ms/step)")
     return 0
 
 

@@ -48,6 +48,15 @@ def average_logits(
     return torch.where(counts > 0, sums / counts.clamp(min=1.0), torch.zeros_like(sums))
 
 
+def segment_accuracy(seg_logits: torch.Tensor, seg_target: torch.Tensor, mask=None) -> torch.Tensor:
+    """Top-1 per-segment accuracy in percent (masked segments left out)."""
+    correct = (seg_logits.argmax(dim=-1) == seg_target).float()
+    if mask is None:
+        return correct.mean() * 100.0
+    mask = mask.float()
+    return (correct * mask).sum() / mask.sum().clamp(min=1.0) * 100.0
+
+
 def mean_confidence_interval(values, confidence: float = 0.95):
     """95 % t-interval over per-episode accuracies.  Returns (mean, half-width)."""
     from scipy import stats

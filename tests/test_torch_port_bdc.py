@@ -172,15 +172,16 @@ def _kernel_inputs(case):
     x = torch.zeros((2, 64, 10))
     log_t = torch.zeros((1, 1))
     if case == "d_above_limit":
-        return torch.zeros((2, 129, 10)), log_t, ValueError
+        return torch.zeros((2, 129, 10)), log_t, ValueError, {}
     if case == "float64":
-        return x.double(), log_t, TypeError
+        return x.double(), log_t, TypeError, {}
     if case == "not_contiguous":
-        return torch.zeros((2, 10, 64)).transpose(1, 2), log_t, ValueError
+        return torch.zeros((2, 10, 64)).transpose(1, 2), log_t, ValueError, {}
     if case == "log_t_size":
-        return x, torch.zeros(2), ValueError
+        return x, torch.zeros(2), ValueError, {}
     if case == "needs_grad":
-        return x, torch.zeros((1, 1), requires_grad=True), RuntimeError
+        # the triu vector has a backward kernel; the full matrix has none
+        return x, torch.zeros((1, 1), requires_grad=True), RuntimeError, {"return_full": True}
     raise AssertionError(case)
 
 
@@ -188,9 +189,9 @@ def _kernel_inputs(case):
     "case", ["d_above_limit", "float64", "not_contiguous", "log_t_size", "needs_grad"]
 )
 def test_kernel_input_checks(case):
-    x, log_t, err = _kernel_inputs(case)
+    x, log_t, err, kwargs = _kernel_inputs(case)
     with pytest.raises(err):
-        bdc_cuda.check_kernel_inputs(x, log_t)
+        bdc_cuda.check_kernel_inputs(x, log_t, **kwargs)
 
 
 def test_kernel_input_checks_accept_the_supported_range():
@@ -200,6 +201,9 @@ def test_kernel_input_checks_accept_the_supported_range():
         bdc_cuda.check_kernel_inputs(
             torch.zeros((2, 64, 7), requires_grad=True), torch.zeros((1, 1))
         )
+    # the triu vector alone has a backward
+    bdc_cuda.check_kernel_inputs(torch.zeros((2, 64, 7)),
+                                 torch.zeros((1, 1), requires_grad=True))
 
 
 @pytest.mark.parametrize(
