@@ -67,43 +67,16 @@
 // by the true d); any M >= 1.  log_t is read through a device pointer so a
 // call never synchronises with the host.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-
 #include <cstddef>
 #include <cstdint>
 
+#include "bdc_common.cuh"
+
 namespace {
 
-// -- phase clocks, compiled in only for profile_bdc_pool.py ------------------
-// With -DBDC_POOL_PROFILE every warp of the first kProfiledBlocks blocks adds
-// up the SM cycles it spends in each phase of the kernel's loop; the card
-// has no other profiler for the inside of a kernel.
-#ifdef BDC_POOL_PROFILE
-constexpr int kPhases = 7;  // wait, barrier, request, k-steps, reduce, dcov, out
-constexpr int kProfiledBlocks = 128;
-__device__ long long g_phase_cycles[kPhases][kProfiledBlocks * 8];  // 8 = kWarps
-__device__ int g_profiled_grid;  // gridDim.x of the last launch
-#define PHASES_BEGIN                  \
-  long long phase_cycles[kPhases] = {}; \
-  long long phase_clock = clock64();
-#define PHASE_END(k)                               \
-  {                                                \
-    const long long now = clock64();               \
-    phase_cycles[k] += now - phase_clock;          \
-    phase_clock = now;                             \
-  }
-#define PHASES_WRITE(warp, lane)                                         \
-  if (threadIdx.x == 0 && blockIdx.x == 0) g_profiled_grid = gridDim.x;  \
-  if (lane == 0 && blockIdx.x < kProfiledBlocks)                         \
-    for (int k = 0; k < kPhases; ++k)                                    \
-      g_phase_cycles[k][blockIdx.x * 8 + warp] = phase_cycles[k];
-#else
-#define PHASES_BEGIN
-#define PHASE_END(k)
-#define PHASES_WRITE(warp, lane)
-#endif
+// phase clocks (bdc_common.cuh): wait, barrier, request, k-steps, reduce,
+// dcov, out
+PHASE_CLOCKS(7)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -152,10 +125,6 @@ struct Shape {
                 "the warps of a group share a chunk's k-steps evenly");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // -- a stage of the ring ------------------------------------------------------
 // kBoxes boxes of [Dp rows][32 columns], each row 128 bytes whose eight
 // 16-byte pieces are permuted by the 128-byte swizzle of the tensor map:
@@ -167,80 +136,6 @@ __device__ __forceinline__ int stage_offset(int row, int col) {
   const int k = col % kBoxCols;
   return (col / kBoxCols) * (DP * kBoxCols) + row * kBoxCols +
          ((((k >> 2) ^ (row & 7)) << 2) | (k & 3));
-}
-
-// -- the two load paths -------------------------------------------------------
-// Tensor map: an x whose rows start on 16-byte boundaries is described to
-// the TMA unit as [B][d][M]; one thread asks for a box, the unit computes
-// the addresses, swizzles, zero-fills what lies beyond row d or column M,
-// and counts the bytes that land on an mbarrier every thread waits on.
-// Scalar: any other x is copied by 4-byte cp.async from all threads into
-// the same layout and waited for by commit groups.
-
-__device__ __forceinline__ void mbarrier_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(arrivals)
-               : "memory");
-}
-
-// One arrival that also announces `bytes` of copies still to land.
-__device__ __forceinline__ void mbarrier_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Order this thread's earlier shared-memory accesses (and those it has
-// synchronised with) before its later copies through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The box at (column c0, row 0, element b) of the tensor map into `dst`.
-__device__ __forceinline__ void tma_load_box(float* dst, const CUtensorMap* map,
-                                             int c0, int b, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(0), "r"(b),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// 4 bytes to shared memory asynchronously; with `bytes` = 0 nothing is read
-// and the destination is zero-filled.
-__device__ __forceinline__ void cp_async_4(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Columns [col0, col0 + kChunk) of one element into a stage, asked for by
@@ -283,25 +178,6 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   return y;
 }
 
-// v = hi + lo up to 2^-21 |v|: hi is v rounded to TF32 (10 mantissa bits,
-// to nearest, ties away: what cvt.rna.tf32.f32 gives, by two integer
-// operations instead of the slower conversion), lo = v - hi is exact in
-// fp32, and the tensor core reads only the upper 19 bits of a TF32 operand,
-// which truncates lo by at most 2^-10 |lo|.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // The m16n8k8 A fragment of 16 rows starting at p (which already points at
 // row g of them): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4), with
 // o0 and o1 the swizzled places of columns k0 + t and k0 + t + 4 in a row.
@@ -326,11 +202,6 @@ struct Owned {
   static constexpr int rb2 = NB - 1 - G;
   static constexpr int n1 = 2 * NB - 2 * rb1;
   static constexpr int n2 = rb2 > rb1 ? 2 * rb1 + 2 : 0;
-};
-
-template <int V>
-struct Int {
-  static constexpr int value = V;
 };
 
 // f(Int<G>{}) for the warp's group G
@@ -667,44 +538,6 @@ bdc_pool_kernel(const __grid_constant__ CUtensorMap x_map,
   PHASES_WRITE(warp, lane)
 }
 
-// cuTensorMapEncodeTiled of the libcuda the process has loaded, or null.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return reinterpret_cast<EncodeTiled>(
-        lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
-  }();
-  return fn;
-}
-
-// x as [batch][d][m] fp32 in boxes of [1][DP][kBoxCols], 128-byte swizzle,
-// zeros beyond the edges.
-template <int DP>
-cudaError_t make_x_map(CUtensorMap* map, const float* x, int batch, int d,
-                       int m) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)m, (cuuint64_t)d,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)m * sizeof(float),
-                                 (cuuint64_t)d * m * sizeof(float)};
-  const cuuint32_t box[3] = {kBoxCols, DP, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The blocks that can be resident on the current device at once: the grid of
 // a launch.  Asked of the runtime once per kernel and device, with the
 // opt-in to the kernel's dynamic shared memory.
@@ -746,7 +579,8 @@ cudaError_t launch(const float* x, const float* log_t, float* triu,
   cudaError_t err = resident_blocks<NB, TMA>(&blocks);
   if (err != cudaSuccess) return err;
   alignas(64) CUtensorMap x_map = {};
-  if (TMA && (err = make_x_map<S::Dp>(&x_map, x, batch, d, m)) != cudaSuccess)
+  if (TMA && (err = make_x_map(&x_map, x, batch, d, m, kBoxCols, S::Dp,
+                                CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
     return err;
   bdc_pool_kernel<NB, TMA>
       <<<batch < blocks ? batch : blocks, kThreads, S::kSmemBytes, stream>>>(
@@ -758,10 +592,7 @@ template <int NB>
 cudaError_t launch_for_alignment(const float* x, const float* log_t,
                                  float* triu, float* full, int batch, int d,
                                  int m, cudaStream_t stream) {
-  // a tensor map needs x and every row of it on 16-byte boundaries
-  const bool aligned =
-      m % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  return aligned
+  return tma_aligned(x, m)
              ? launch<NB, true>(x, log_t, triu, full, batch, d, m, stream)
              : launch<NB, false>(x, log_t, triu, full, batch, d, m, stream);
 }
@@ -814,7 +645,7 @@ __global__ void mma_rate_kernel(float* out, int iters) {
 
 // What bdc_pool_read_phases fills: phases x (profiled blocks x warps a block).
 extern "C" void bdc_pool_phase_shape(int* phases, int* blocks, int* warps) {
-  static_assert(kWarps == 8, "g_phase_cycles has 8 warps a block");
+  static_assert(kWarps == kProfiledWarps, "g_phase_cycles has 8 warps a block");
   *phases = kPhases;
   *blocks = kProfiledBlocks;
   *warps = kWarps;

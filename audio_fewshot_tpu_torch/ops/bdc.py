@@ -5,7 +5,7 @@ plus an elementwise/reduction epilogue.  This is the plain version of the
 CUDA kernel in ``ops/bdc_cuda.py``: the CPU runs it, and the card compares
 the kernel against it.  ``bdc_pool_triu_vjp`` is the plain version of the
 backward kernel: autograd through ``bdc_pool`` and ``triuvec``;
-``bdc_pool_triu_vjp_direct`` repeats the backward kernel's own arithmetic.
+``bdc_pool_triu_vjp_cluster`` repeats the backward kernel's own arithmetic.
 """
 
 from __future__ import annotations
@@ -53,33 +53,52 @@ def bdc_pool_triu_vjp(x: torch.Tensor, log_t: torch.Tensor,
     return grad_x, grad_log_t.to(log_t.dtype)
 
 
-def bdc_pool_triu_vjp_direct(x: torch.Tensor, log_t: torch.Tensor,
-                             grad_triu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def bdc_pool_triu_vjp_cluster(x: torch.Tensor, log_t: torch.Tensor,
+                              grad_triu: torch.Tensor,
+                              cluster: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gradients of ``bdc_pool_triu_vjp`` by the arithmetic of the
-    backward kernel (``csrc/bdc_pool_backward.cu``): squared distances
-    summed from the differences of rows (not from the gram), the symmetric
-    part of the centred incoming gradient, and x̄_i = 2 Σ_j S_ij (x_i − x_j).
-    It bounds the kernel's error without a card; nothing on the main path
-    calls it."""
-    b, d, _ = x.shape
+    backward kernel (``csrc/bdc_pool_backward.cu``), whose ``cluster``
+    blocks (3 at the training batch) each own a contiguous slice of the M
+    columns: squared distances summed from the differences of rows (not from
+    the gram) in float32 per slice, the slices' partial sums added in rank
+    order; the symmetric part
+    of the centred incoming gradient, Dsym, in float64; S = Dsym·t/(2D)
+    rounded to float32; x̄_i = 2 Σ_j S_ij (x_i − x_j) in float32; the
+    ``log_t`` gradient Σ_{i<j} Dsym_ij·(t/(2D_ij))·dist2_ij summed in
+    float64 (it cancels to a small number, and float32 terms leave up to
+    3e-5 of it).  It bounds the kernel's error without a card; nothing on
+    the main path calls it."""
+    b, d, m = x.shape
+    wide = torch.float64
     t = torch.exp(log_t.to(x.dtype).reshape(()))
-    full = torch.zeros((b, d * d), dtype=x.dtype, device=x.device)
-    full[:, torch.from_numpy(triu_indices_flat(d)).to(x.device)] = grad_triu.to(x.dtype)
+    full = torch.zeros((b, d * d), dtype=wide, device=x.device)
+    full[:, torch.from_numpy(triu_indices_flat(d)).to(x.device)] = grad_triu.to(wide)
     full = full.reshape(b, d, d)
     ysym = full + full.transpose(-1, -2)
     rows = ysym.sum(dim=-1)
     dsym = (ysym - (rows[:, :, None] + rows[:, None, :]) / d
             + (rows.sum(dim=-1) / d ** 2)[:, None, None])
+    width = 4 * -(-m // (4 * cluster))  # the kernel's slices start on 16-byte columns
     grad_x = torch.empty_like(x)
-    grad_t = torch.zeros((), dtype=x.dtype, device=x.device)
-    for i in range(b):  # one element at a time: the differences are [d, d, M]
-        diff = x[i, :, None, :] - x[i, None, :, :]
-        dist2 = (diff * diff).sum(dim=-1)
-        s = torch.where(dist2 > 0, dsym[i] * t / (2.0 * torch.sqrt(t * dist2 + 1e-5)),
+    grad_t = torch.zeros((), dtype=wide, device=x.device)
+    for i in range(b):  # one element at a time: the differences are [d, d, M / C]
+        dist2 = torch.zeros((d, d), dtype=x.dtype, device=x.device)
+        for c0 in range(0, m, width):
+            diff = x[i, :, None, c0:c0 + width] - x[i, None, :, c0:c0 + width]
+            dist2 = dist2 + (diff * diff).sum(dim=-1)
+        q = torch.where(dist2 > 0, t / (2.0 * torch.sqrt(t * dist2 + 1e-5)),
                         torch.zeros_like(dist2))
-        grad_x[i] = 2.0 * (s[:, :, None] * diff).sum(dim=1)
-        grad_t = grad_t + 0.5 * (s * dist2).sum()
+        s = (dsym[i] * q.to(wide)).to(x.dtype)
+        grad_x[i] = 2.0 * (s[:, :, None] * (x[i, :, None, :] - x[i, None, :, :])).sum(dim=1)
+        grad_t = grad_t + 0.5 * (dsym[i] * q.to(wide) * dist2.to(wide)).sum()
     return grad_x, grad_t.reshape(log_t.shape).to(log_t.dtype)
+
+
+def bdc_pool_triu_vjp_direct(x: torch.Tensor, log_t: torch.Tensor,
+                             grad_triu: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``bdc_pool_triu_vjp_cluster`` with one block per element: the
+    distances summed over all M columns at once."""
+    return bdc_pool_triu_vjp_cluster(x, log_t, grad_triu, cluster=1)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:

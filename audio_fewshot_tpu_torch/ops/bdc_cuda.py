@@ -21,8 +21,11 @@ kernel's time goes.
 The gradient is a kernel too, ``csrc/bdc_pool_backward.cu``, behind the
 ``torch.autograd.Function`` ``BdcPoolTriu``: ``bdc_pool_triu`` goes through
 it whenever grad is enabled and an input requires grad.  Its forward is the
-kernel above; its backward recomputes the gram in exact fp32 and writes the
-gradients of x and of ``log_t`` (``bdc_pool_triu_backward``).
+kernel above; its backward gives each element a cluster of blocks over the M
+columns, sums squared row differences in exact fp32 and writes the gradients
+of x and of ``log_t`` (``bdc_pool_triu_backward``;
+``ops/bdc.py::bdc_pool_triu_vjp_cluster`` repeats its arithmetic).  Both
+sources include ``csrc/bdc_common.cuh``.
 
 On a CPU tensor both wrappers run the plain version (``ops/bdc.py``, and
 autograd through it); on a CUDA tensor they launch their kernel or raise.
@@ -87,6 +90,12 @@ def backward_library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.bdc_pool_backward_launch.restype = ctypes.c_int
+    lib.bdc_pool_backward_cluster.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bdc_pool_backward_cluster.restype = ctypes.c_int
+    lib.bdc_pool_backward_sum_log_t.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.bdc_pool_backward_sum_log_t.restype = ctypes.c_int
     return lib
 
 
@@ -142,7 +151,7 @@ def _forward(x: torch.Tensor, log_t: torch.Tensor, return_full: bool):
 
 class BdcPoolTriu(torch.autograd.Function):
     """``triuvec(bdc_pool(x, log_t))`` on the card with a kernel for each
-    direction.  Saves x and ``log_t``; the backward recomputes the gram."""
+    direction.  Saves x and ``log_t``; the backward recomputes the distances."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, log_t: torch.Tensor) -> torch.Tensor:
@@ -181,7 +190,8 @@ def bdc_pool_triu_backward(
     """Gradients of ``sum(grad_triu * triuvec(bdc_pool(x, log_t)))`` by x
     ``[B, d, M]`` and by ``log_t`` (its shape).  On the CPU by autograd
     through the plain version; on the card by the backward kernel, whose
-    per-element ``log_t`` partials are summed here."""
+    float64 ``log_t`` partials (one per block, C blocks an element) a
+    second kernel of its library sums in a fixed order."""
     global backward_launches
     if x.device.type == "cpu":
         return bdc_pool_triu_vjp(x, log_t, grad_triu)
@@ -197,16 +207,24 @@ def bdc_pool_triu_backward(
                         f"{grad_triu.dtype} on {grad_triu.device}")
     grad_triu = grad_triu.contiguous()
     grad_x = torch.empty_like(x)
-    parts = torch.empty((b,), dtype=torch.float32, device=x.device)
+    grad_log_t = torch.empty_like(log_t)
     lib = backward_library()
     with torch.cuda.device(x.device):
+        # one float64 log_t partial per block: C blocks an element
+        n_cluster = lib.bdc_pool_backward_cluster(b, m) if b > 0 else 1
+        if n_cluster < 1:
+            raise RuntimeError("bdc_pool_backward found no CUDA device")
+        parts = torch.empty((b * n_cluster,), dtype=torch.float64, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bdc_pool_backward_launch(
             x.data_ptr(), log_t.data_ptr(), grad_triu.data_ptr(),
-            grad_x.data_ptr(), parts.data_ptr(), b, d, m,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            grad_x.data_ptr(), parts.data_ptr(), b, d, m, stream,
         )
+        if err == 0:
+            err = lib.bdc_pool_backward_sum_log_t(
+                parts.data_ptr(), parts.numel(), grad_log_t.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bdc_pool_backward kernel launch failed with CUDA error {err}")
     if b > 0:
         backward_launches += 1
-    return grad_x, parts.sum().reshape(log_t.shape)
+    return grad_x, grad_log_t

@@ -4,8 +4,10 @@ Each library has a plain C interface and is loaded with ``ctypes``.  It is
 built at first use from the package's ``csrc/`` sources into
 ``build/kernels/`` beside the package; the file name carries a hash of the
 sources and flags, so an edited source builds anew and an unchanged one is
-reused.  ``nvcc``'s output (the ``-Xptxas -v`` register and shared-memory
-report) is kept beside the library as ``<name>.log``.
+reused.  The ``*.cuh`` headers in a source's directory, which the sources
+include by relative path, are part of the hash.  ``nvcc``'s output (the
+``-Xptxas -v`` register and shared-memory report) is kept beside the
+library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ def build_library(
 ) -> Path:
     """Path of ``lib<name>-<hash>.so`` built from ``sources`` (reused when
     already built).  ``extra_flags`` (``-D...``) come after ``NVCC_FLAGS``
-    and are part of the hash."""
+    and are part of the hash, as are the headers beside the sources."""
     sources = [Path(s) for s in sources]
     flags = (*NVCC_FLAGS, *extra_flags)
     digest = hashlib.sha256(" ".join(flags).encode())
-    for src in sources:
+    headers = sorted({h for src in sources for h in src.parent.glob("*.cuh")})
+    for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

@@ -1,18 +1,15 @@
 """Optimizers and LR schedules (counterpart of ``audio_fewshot_tpu/optim.py``).
 
 ``optimizer.name/kwargs`` builds a ``torch.optim`` optimizer (Adam, AdamW,
-SGD, RMSprop) with one parameter group per top-level submodule of the
-method; ``optimizer.other: {submodule: lr}`` gives a group its own base LR.
+SGD, and ``RMSprop`` below) with one parameter group per top-level submodule
+of the method; ``optimizer.other: {submodule: lr}`` gives a group its own
+base LR.
 Weight decay is coupled (added to the gradient) for Adam, SGD and RMSprop
 and decoupled for AdamW, as in torch; it defaults to 0 for all four.
 ``lr_scheduler.name/kwargs`` is a host-side per-EPOCH multiplier of the
 base LRs, optionally behind a linear warmup, with ReduceLROnPlateau
 bookkeeping; the trainer sets the groups' LR once per epoch.  The scheduler
 is a copy of the JAX package's (pure Python).
-
-One difference from the JAX package: its RMSprop (optax ``scale_by_rms``)
-adds eps inside the square root, torch's outside.  No shipped config uses
-RMSprop.
 """
 
 from __future__ import annotations
@@ -23,11 +20,66 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch import nn
 
+
+class RMSprop(torch.optim.Optimizer):
+    """RMSprop as the JAX package's optax chain computes it (coupled weight
+    decay, ``scale_by_rms``, ``trace``), which is not ``torch.optim.RMSprop``:
+    optax divides by ``sqrt(nu + eps)``, torch by ``sqrt(nu) + eps``.  Per
+    step, for each parameter p with gradient g:
+
+        g  <- g + weight_decay * p
+        nu <- alpha * nu + (1 - alpha) * g**2       (nu starts at 0)
+        u  =  g / sqrt(nu + eps)
+        m  <- momentum * m + u                      (with momentum; u = m)
+        p  <- p - lr * u
+
+    One ``torch._foreach_*`` pass per group.  The state (``square_avg``,
+    ``momentum_buffer``) is in ``state_dict()``."""
+
+    def __init__(self, params, lr: float = 1e-2, alpha: float = 0.99,
+                 eps: float = 1e-8, momentum: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            states = [self.state[p] for p in params]
+            for p, state in zip(params, states):
+                if not state:
+                    state["square_avg"] = torch.zeros_like(p)
+                    if group["momentum"]:
+                        state["momentum_buffer"] = torch.zeros_like(p)
+            nus = [state["square_avg"] for state in states]
+            torch._foreach_mul_(nus, group["alpha"])
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - group["alpha"])
+            denom = torch._foreach_add(nus, group["eps"])
+            torch._foreach_sqrt_(denom)
+            updates = torch._foreach_div(grads, denom)
+            if group["momentum"]:
+                updates_m = [state["momentum_buffer"] for state in states]
+                torch._foreach_mul_(updates_m, group["momentum"])
+                torch._foreach_add_(updates_m, updates)
+                updates = updates_m
+            torch._foreach_add_(params, updates, alpha=-group["lr"])
+        return loss
+
+
 _OPTIMIZERS = {
     "adam": (torch.optim.Adam, ("betas", "eps")),
     "adamw": (torch.optim.AdamW, ("betas", "eps")),
     "sgd": (torch.optim.SGD, ("momentum", "nesterov")),
-    "rmsprop": (torch.optim.RMSprop, ("alpha", "eps", "momentum")),
+    "rmsprop": (RMSprop, ("alpha", "eps", "momentum")),
 }
 
 

@@ -28,11 +28,16 @@ Phases (any failure ends the script with a non-zero exit code):
    the CPU;
 6. the backward kernel against autograd through the plain version on the
    card, in float32 with TF32 off, at the training shape (75, 64, 304), at
-   the odd shapes of phase 3 (relative to the max abs, limit 1e-4) and on
+   the odd shapes of phase 3 (every padded width on both load paths), with
+   one element, with clusters of 8, 2 and 1 blocks and with slices walked in
+   chunks (relative to the max abs, limit 1e-4), twice on one input (the
+   same bits), and on
    the adversarial inputs plus all-zero rows, where the kernel, the plain
    version and a plain emulation of the kernel's arithmetic are also held
    against a float64 autograd (limit 5e-4 for the kernel); with the
-   kernel's, the plain version's, the bound's and ``torch.bmm``'s time;
+   kernel's, the plain version's, the bound's and ``torch.bmm``'s time
+   (eager calls over rotating buffers; the kernel's and ``torch.bmm``'s
+   time as a CUDA graph of calls beside them, for context);
 7. training: ``Trainer`` on ``deepbdc_5shot_iid_seed0`` at full width
    (``train.slice_config``: 75 segments a step, bf16 backbone, fp32 head,
    Adam, cosine LR, augmentation on; cut to 2 epochs of 40 episodes, 32
@@ -101,20 +106,36 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Device time per call of ``fn`` from a CUDA graph of ``calls`` calls,
+    replayed ``reps`` times: the card's time without the host's per-call
+    work between calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps=reps) / calls
+
+
 def ptxas_report(log: str) -> tuple:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: the template
     arguments of ``bdc_pool_kernel<NB, TMA>`` (d padded to 16·NB; loads by
-    tensor map or by 4-byte copies) or ``bdc_pool_backward_kernel<NB>``,
+    tensor map or by 4-byte copies) or ``bdc_pool_backward_kernel<NB, TMA>``,
     registers, spills, shared memory.  Returns the lines and those among
     them that report a spill."""
     lines, spilled, name = [], [], None
     for line in log.splitlines():
         forward = re.search(r"bdc_pool_kernelILi(\d+)ELb([01])EE", line)
-        backward = re.search(r"bdc_pool_backward_kernelILi(\d+)EE", line)
+        backward = re.search(r"bdc_pool_backward_kernelILi(\d+)ELb([01])EE", line)
         if "Compiling entry function" in line and forward:
             name = f"d <= {16 * int(forward[1])}, {'tensor map' if forward[2] == '1' else 'scalar'} loads"
         elif "Compiling entry function" in line and backward:
-            name = f"backward, d <= {16 * int(backward[1])}"
+            name = (f"backward, d <= {16 * int(backward[1])}, "
+                    f"{'tensor map' if backward[2] == '1' else 'scalar'} loads")
         elif "spill" in line and name:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -200,7 +221,7 @@ def main() -> int:
     from audio_fewshot_tpu_torch.models import build_method, eval_setting
     from audio_fewshot_tpu_torch.ops import bdc_cuda
     from audio_fewshot_tpu_torch.ops.bdc import (
-        bdc_from_gram, bdc_pool, bdc_pool_triu_vjp, bdc_pool_triu_vjp_direct,
+        bdc_from_gram, bdc_pool, bdc_pool_triu_vjp, bdc_pool_triu_vjp_cluster,
         gram_split_tf32, triuvec)
     from audio_fewshot_tpu_torch import run_trainer_resume, train
     from audio_fewshot_tpu_torch.utils.checkpoint import LAST, load_last, save_model_best
@@ -384,22 +405,33 @@ def main() -> int:
             (*TRAIN_SHAPE, 0), (2, 16, 45, 0), (3, 100, 77, 0), (5, 128, 33, 0),
             (3, 128, 40, 0), (2, 100, 76, 0), (2, 96, 300, 0), (2, 80, 64, 0),
             (3, 48, 8, 0), (4, 32, 12, 0), (2, 16, 8, 0), (2, 64, m_main, 1),
-            (2, 32, 13, 0), (2, 48, 9, 0), (2, 80, 65, 0), (2, 96, 301, 0)]:
+            (2, 32, 13, 0), (2, 48, 9, 0), (2, 80, 65, 0), (2, 96, 301, 0),
+            # one element; clusters of 8, 2 and 1; slices walked in chunks
+            (1, 64, m_main, 0), (7, 64, m_main, 0), (140, 16, 20, 0),
+            (300, 32, 36, 0), (2, 64, 1200, 0), (3, 48, 1201, 0)]:
         x = torch.randn((b * d * m + shift,), device="cuda", generator=gen)
         x = x[shift:].view(b, d, m)
         gy = torch.randn((b, d * (d + 1) // 2), device="cuda", generator=gen)
+        cluster = bdc_cuda.backward_library().bdc_pool_backward_cluster(b, m)
         lt = torch.full((1, 1), math.log(1.0 / (2.0 * m)), device="cuda")
         gx, gt = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
         px, pt = bdc_pool_triu_vjp(x, lt, gy)
         torch.cuda.synchronize()
         ex, et = rel_err(gx, px), rel_err(gt, pt)
-        print(f"[backward] {(b, d, m)}{' off 16-byte alignment' if shift else ''}: "
+        print(f"[backward] {(b, d, m)}{' off 16-byte alignment' if shift else ''}, "
+              f"clusters of {cluster}: "
               f"kernel vs plain, relative to the max abs: x {ex:.3e}, log_t {et:.3e} "
               f"(limit {GRAD_REL_LIMIT:g}); max abs {(gx - px).abs().max().item():.3e}")
         if not (ex <= GRAD_REL_LIMIT and et <= GRAD_REL_LIMIT):
             raise AssertionError(f"bdc_pool_backward disagrees with plain at {(b, d, m)}")
         bwd_err = max(bwd_err, (gx - px).abs().max().item(), (gt - pt).abs().max().item())
         if (b, d, m) == TRAIN_SHAPE:
+            # deterministic: a second launch on the same input, the same bits
+            gx2, gt2 = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
+            if not (torch.equal(gx, gx2) and torch.equal(gt, gt2)):
+                raise AssertionError("bdc_pool_backward gives other bits on a second launch")
+            print(f"[backward] {(b, d, m)}: a second launch gives the same bits")
+            del gx2, gt2
             n_buf = max(1, math.ceil(2 * L2_BYTES / (4 * (2 * x.numel() + gy.numel()))))
             pairs = [(x, gy)] + [
                 (torch.randn((b, d, m), device="cuda", generator=gen),
@@ -413,16 +445,23 @@ def main() -> int:
 
             ms = time_ms(lambda: on_next(bdc_cuda.bdc_pool_triu_backward))
             plain_ms = time_ms(lambda: on_next(bdc_pool_triu_vjp))
+            # context: the card's time without the host's per-call work
+            # (Python, ctypes, the tensor map) between calls
+            graph_kernel_ms = graph_ms(lambda: on_next(bdc_cuda.bdc_pool_triu_backward))
             ls = [torch.randn((b, d, d), device="cuda", generator=gen) for _ in range(n_buf)]
             lfeed = rotating(list(zip(ls, [p[0] for p in pairs])))
             bmm_ms = time_ms(lambda: torch.bmm(*next(lfeed)))
+            graph_bmm_ms = graph_ms(lambda: torch.bmm(*next(lfeed)))
             bound_ms, bound_by = bdc_backward_bound_ms(b, d, m, peaks)
             bwd_times = (ms, plain_ms, bound_ms, bound_by)
-            print(f"[backward] {(b, d, m)}: kernel {ms:.4f} ms, plain (autograd) "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), over {n_buf} "
-                  "input buffer(s) in turn; library: none (no single PyTorch call computes it)")
+            print(f"[backward] {(b, d, m)}, clusters of {cluster}: kernel {ms:.4f} ms, "
+                  f"plain (autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), eager calls over {n_buf} input buffer(s) in turn; "
+                  "library: none (no single PyTorch call computes it)")
             print(f"[backward] context: torch.bmm(L, x), the [d, d] x [d, M] product "
-                  f"alone, {bmm_ms:.4f} ms")
+                  f"alone, {bmm_ms:.4f} ms; as a CUDA graph of 20 calls: the wrapper "
+                  f"(the kernel, the sum of the log_t partials) {graph_kernel_ms:.4f} ms, "
+                  f"torch.bmm {graph_bmm_ms:.4f} ms")
             del pairs, feed, ls, lfeed
         del x, gy, gx, px
     # adversarial inputs: the plain version, through the gram, loses the
@@ -439,7 +478,8 @@ def main() -> int:
         gx, gt = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
         px, pt = bdc_pool_triu_vjp(x, lt, gy)
         tx, tt = bdc_pool_triu_vjp(x.double(), lt.double(), gy.double())
-        ex, et = bdc_pool_triu_vjp_direct(x, lt, gy)  # diagnosis: the kernel's arithmetic
+        ex, et = bdc_pool_triu_vjp_cluster(  # diagnosis: the kernel's arithmetic
+            x, lt, gy, cluster=bdc_cuda.backward_library().bdc_pool_backward_cluster(64, m_main))
         k64 = max(rel_err(gx, tx), rel_err(gt, tt))
         p64 = max(rel_err(px, tx), rel_err(pt, tt))
         e64 = max(rel_err(ex, tx), rel_err(et, tt))

@@ -285,6 +285,36 @@ def test_build_caches_by_source_hash(monkeypatch, tmp_path):
     assert build.find_nvcc() == os.path.join(str(tmp_path), "bin", "nvcc")
 
 
+def test_build_hashes_the_headers_beside_the_sources(monkeypatch, tmp_path):
+    """An edited ``.cuh`` beside a source builds anew (the sources include
+    it by relative path), and an unchanged one reuses the library; headers
+    elsewhere do not enter."""
+    nvcc = _fake_nvcc(tmp_path)
+    _isolate_toolkit(monkeypatch, tmp_path, nvcc.parent)
+    src_dir = tmp_path / "csrc"
+    src_dir.mkdir()
+    src = src_dir / "k.cu"
+    src.write_text('#include "common.cuh"\n')
+    header = src_dir / "common.cuh"
+    header.write_text("// v1\n")
+    (tmp_path / "elsewhere.cuh").write_text("// not beside the source\n")
+    first = build.build_library("k", [src])
+    assert build.build_library("k", [src]) == first
+    (tmp_path / "elsewhere.cuh").write_text("// edited\n")
+    assert build.build_library("k", [src]) == first
+    header.write_text("// v2\n")
+    second = build.build_library("k", [src])
+    assert second != first and second.is_file()
+    assert (tmp_path / "calls").read_text().count("call") == 2
+
+
+def test_both_kernel_sources_include_the_header_the_build_hashes():
+    header = bdc_cuda.SOURCE.with_name("bdc_common.cuh")
+    assert header.is_file() and bdc_cuda.BACKWARD_SOURCE.parent == header.parent
+    for source in (bdc_cuda.SOURCE, bdc_cuda.BACKWARD_SOURCE):
+        assert '#include "bdc_common.cuh"' in source.read_text()
+
+
 def test_build_extra_flags_make_a_library_of_their_own(monkeypatch, tmp_path):
     nvcc = _fake_nvcc(tmp_path)
     _isolate_toolkit(monkeypatch, tmp_path, nvcc.parent)
@@ -297,19 +327,35 @@ def test_build_extra_flags_make_a_library_of_their_own(monkeypatch, tmp_path):
     assert (tmp_path / "calls").read_text().count("call") == 2
 
 
-def test_kernel_source_keeps_its_phase_clocks_out_of_the_default_build():
-    """The phase clocks and the mma-rate probe of ``profile_bdc_pool`` exist
-    only under ``BDC_POOL_PROFILE``: with the macro undefined the source has
-    the launch and nothing else ``extern "C"``; the profiler reads the shape
-    of the clocks from the build that counts them."""
-    text = bdc_cuda.SOURCE.read_text()
+@pytest.mark.parametrize("kernel", ["forward", "backward"])
+def test_kernel_source_keeps_its_phase_clocks_out_of_the_default_build(kernel):
+    """The phase clocks (and the forward's mma-rate probe) of
+    ``profile_bdc_pool`` exist only under ``BDC_POOL_PROFILE``: with the
+    macro undefined the source has its launch entries and nothing else
+    ``extern "C"``; the profiler reads the shape of the clocks from the
+    build that counts them.  The clock macros live in the shared header,
+    with empty definitions for the default build."""
+    source = bdc_cuda.SOURCE if kernel == "forward" else bdc_cuda.BACKWARD_SOURCE
+    prefix = "bdc_pool" if kernel == "forward" else "bdc_pool_backward"
+    text = source.read_text()
+    assert '#include "bdc_common.cuh"' in text
     default_build, _, profiled = text.rpartition("#ifdef BDC_POOL_PROFILE")
-    assert default_build.count('extern "C"') == 1
-    for entry in ("bdc_pool_phase_shape", "bdc_pool_read_phases", "bdc_pool_mma_rate"):
+    entries = ({"bdc_pool_launch"} if kernel == "forward"
+               else {"bdc_pool_backward_launch", "bdc_pool_backward_cluster",
+                     "bdc_pool_backward_sum_log_t"})
+    assert default_build.count('extern "C"') == len(entries)
+    assert all(f"{e}(" in default_build for e in entries)
+    profile_only = [f"{prefix}_phase_shape", f"{prefix}_read_phases"]
+    profile_only.append("bdc_pool_mma_rate" if kernel == "forward"
+                        else "bdc_pool_backward_launch_cluster")
+    for entry in profile_only:
         assert entry in profiled and entry not in default_build
-    profiler = (bdc_cuda.SOURCE.parents[1] / "profile_bdc_pool.py").read_text()
-    assert "bdc_pool_phase_shape" in profiler
-    assert "#define PHASE_END(k)\n" in text  # the empty definition
+    profiler = (source.parents[1] / "profile_bdc_pool.py").read_text()
+    assert f'"{prefix}"' in profiler or f"{prefix}_phase_shape" in profiler
+    header = source.with_name("bdc_common.cuh").read_text()
+    _, _, default_macros = header.partition("#else\n")
+    assert "#define PHASE_END(k)\n" in default_macros  # the empty definition
+    assert "#define PHASE_CLOCKS(n)\n" in default_macros
 
 
 def test_build_failure_leaves_no_library(monkeypatch, tmp_path):

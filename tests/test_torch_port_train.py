@@ -15,6 +15,7 @@ noise in either package (it divides by D = sqrt(t·dist² + 1e-5)), so both
 are held against float64 at 5e-5, and against each other at 1e-4."""
 
 import ast
+import copy
 import glob
 import os
 
@@ -44,7 +45,9 @@ from audio_fewshot_tpu_torch.episode import materialize_episode_batch  # noqa: E
 from audio_fewshot_tpu_torch.models import build_method, train_setting  # noqa: E402
 from audio_fewshot_tpu_torch.models.backbones.layers import BatchNorm  # noqa: E402
 from audio_fewshot_tpu_torch.ops import bdc_cuda  # noqa: E402
-from audio_fewshot_tpu_torch.ops.bdc import bdc_pool_triu_vjp, bdc_pool_triu_vjp_direct  # noqa: E402
+from audio_fewshot_tpu_torch.ops.bdc import (  # noqa: E402
+    bdc_pool_triu_vjp, bdc_pool_triu_vjp_cluster, bdc_pool_triu_vjp_direct, round_tf32,
+    triu_indices_flat, truncate_tf32)
 from audio_fewshot_tpu_torch.optim import Optimizer, build_scheduler  # noqa: E402
 from audio_fewshot_tpu_torch.utils.convert import state_dict_from_jax  # noqa: E402
 
@@ -123,16 +126,9 @@ def test_bdc_backward_matches_jax_grad(kind, shape):
         assert np.abs(ours_x[:, 0]).max() > 0
 
 
-@pytest.mark.parametrize(
-    "kind", ["normal", "post_relu", "zero_rows", "near_duplicate_rows", "times_30"])
-def test_backward_kernel_arithmetic_against_float64(kind):
-    """The backward kernel's arithmetic (``bdc_pool_triu_vjp_direct``:
-    distances from row differences, x̄ from x_i − x_j) is the gradient
-    (float64: 1e-10) and keeps float32 within 1e-5 of float64 even where
-    the plain autograd version, through the gram, is far off: rows equal to
-    1e-4, whose distance the gram's rounding swamps, and inputs ×30."""
-    g = torch.Generator().manual_seed(3)
-    x = torch.randn((3, 64, 304), generator=g)
+def _adversarial_bdc_input(kind, shape, g):
+    """The five inputs of the backward's float64 gate, made with ``g``."""
+    x = torch.randn(shape, generator=g)
     if kind == "post_relu":
         x = torch.relu(x - 0.5)
     elif kind == "zero_rows":
@@ -145,16 +141,84 @@ def test_backward_kernel_arithmetic_against_float64(kind):
         x[:, 5] = x[:, 4] + 1e-3 * torch.randn(x[:, 4].shape, generator=g)
     elif kind == "times_30":
         x = x * 30.0
-    log_t = torch.full((1, 1), float(np.log(1.0 / 608.0)))
-    ct = torch.randn((3, 64 * 65 // 2), generator=g)
+    return x
+
+
+EMULATIONS = {"direct": bdc_pool_triu_vjp_direct, "cluster": bdc_pool_triu_vjp_cluster}
+
+
+@pytest.mark.parametrize("kind", ["normal", "post_relu", "zero_rows", "near_duplicate_rows",
+                                  "times_30"])
+@pytest.mark.parametrize("shape", [(3, 64, 304), (3, 16, 45), (3, 100, 77), (3, 128, 33)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("emulation", sorted(EMULATIONS))
+def test_backward_kernel_arithmetic_against_float64(emulation, shape, kind):
+    """The backward kernel's arithmetic (``bdc_pool_triu_vjp_cluster``:
+    distances from row differences summed per column slice of a cluster
+    block (3 slices, none of these M a multiple of 3 x 4), x̄ from
+    x_i − x_j, Dsym and the log_t terms in float64; ``_direct``: one slice)
+    is the gradient (float64: 1e-10) and keeps float32 within 1e-5 of
+    float64 even where the plain autograd version, through the gram, is far
+    off: rows equal to 1e-4, whose distance the gram's rounding swamps, and
+    inputs ×30."""
+    g = torch.Generator().manual_seed(3)
+    x = _adversarial_bdc_input(kind, shape, g)
+    d, m = shape[1], shape[2]
+    log_t = torch.full((1, 1), float(np.log(1.0 / (2.0 * m))))
+    ct = torch.randn((shape[0], d * (d + 1) // 2), generator=g)
+    fn = EMULATIONS[emulation]
     truth_x, truth_t = bdc_pool_triu_vjp(x.double(), log_t.double(), ct.double())
-    ident_x, ident_t = bdc_pool_triu_vjp_direct(x.double(), log_t.double(), ct.double())
+    ident_x, ident_t = fn(x.double(), log_t.double(), ct.double())
     assert _rel(ident_x, truth_x) <= 1e-10 and _rel(ident_t, truth_t) <= 1e-10
-    ours_x, ours_t = bdc_pool_triu_vjp_direct(x, log_t, ct)
+    ours_x, ours_t = fn(x, log_t, ct)
     assert ours_x.dtype == torch.float32 and ours_t.shape == (1, 1)
     assert _rel(ours_x, truth_x) <= 1e-5 and _rel(ours_t, truth_t) <= 1e-5
     plain_x, _ = bdc_pool_triu_vjp(x, log_t, ct)
     assert _rel(ours_x, truth_x) < _rel(plain_x, truth_x)
+
+
+def _tensor_core_product(x, s):
+    """2 (r ⊙ x̃ − S x̃) with r = S 1 and x̃ = x − mean row, S x̃ by the
+    three-pass split-TF32 mma (``hi = round_tf32``, ``lo = truncate_tf32``,
+    per k-step of 8: hi·lo, lo·hi, hi·hi into one float32 accumulator)."""
+    xc = x - x.mean(dim=0, keepdim=True)
+    s_hi, x_hi = round_tf32(s), round_tf32(xc)
+    s_lo, x_lo = truncate_tf32(s - s_hi), truncate_tf32(xc - x_hi)
+    prod = torch.zeros_like(xc)
+    for k in range(0, s.shape[0], 8):
+        ks = slice(k, k + 8)
+        prod = prod + s_hi[:, ks] @ x_lo[ks]
+        prod = prod + s_lo[:, ks] @ x_hi[ks]
+        prod = prod + s_hi[:, ks] @ x_hi[ks]
+    return 2.0 * (s.sum(dim=1, keepdim=True) * xc - prod)
+
+
+def test_tensor_core_product_misses_the_float64_gate():
+    """Why the backward kernel's product stays on the CUDA cores: the
+    tensor-core form diag(S 1) x̃ − S x̃ cancels in float32 where S is large,
+    at nearly equal rows, and at d = 16 misses the 1e-5 gate that the
+    difference form Σ_j S_ij (x_i − x_j) keeps by far (same S, same input)."""
+    g = torch.Generator().manual_seed(3)
+    x = _adversarial_bdc_input("near_duplicate_rows", (3, 16, 45), g)
+    log_t = torch.full((1, 1), float(np.log(1.0 / 90.0)))
+    ct = torch.randn((3, 16 * 17 // 2), generator=g)
+    truth_x, _ = bdc_pool_triu_vjp(x.double(), log_t.double(), ct.double())
+    # S as the kernel forms it: float32 distances, Dsym in float64
+    t = float(np.exp(log_t.item()))
+    full = torch.zeros((3, 16 * 16))
+    full[:, torch.from_numpy(triu_indices_flat(16))] = ct
+    full = full.reshape(3, 16, 16).double()
+    ysym = full + full.mT
+    rows = ysym.sum(-1)
+    dsym = ysym - (rows[:, :, None] + rows[:, None, :]) / 16 + (rows.sum(-1) / 256)[:, None, None]
+    diff = x[:, :, None, :] - x[:, None, :, :]
+    dist2 = (diff * diff).sum(-1)
+    q = torch.where(dist2 > 0, t / (2.0 * torch.sqrt(t * dist2 + 1e-5)), torch.zeros_like(dist2))
+    s = (dsym * q.double()).float()
+    tensor_core = torch.stack([_tensor_core_product(x[i], s[i]) for i in range(3)])
+    difference = 2.0 * (s[:, :, :, None] * diff).sum(dim=2)
+    assert _rel(difference, truth_x) <= 1e-6
+    assert _rel(tensor_core, truth_x) > 1e-5  # the gate it misses (measured 2.2e-5)
 
 
 def test_bdc_backward_wrapper_counts_only_kernel_launches(monkeypatch):
@@ -382,7 +446,13 @@ class _TwoParts(torch.nn.Module):
     {"name": "SGD", "kwargs": {"lr": 0.1, "momentum": 0.9, "weight_decay": 0.0005}},
     {"name": "SGD", "kwargs": {"lr": 0.1, "momentum": 0.9, "nesterov": True}},
     {"name": "SGD", "kwargs": {"lr": 0.1}, "other": {"emb_func": 0.02}},
-], ids=["adam", "adam_wd", "adamw", "sgd_momentum_wd", "sgd_nesterov", "sgd_groups"])
+    # eps 1e-3 is large enough that sqrt(nu) + eps (torch.optim.RMSprop)
+    # misses sqrt(nu + eps) (optax) by far more than the tolerance
+    {"name": "RMSprop", "kwargs": {"lr": 0.01, "alpha": 0.9, "eps": 1e-3}},
+    {"name": "RMSprop", "kwargs": {"lr": 0.01, "alpha": 0.9, "eps": 1e-3,
+                                   "momentum": 0.9, "weight_decay": 5e-4}},
+], ids=["adam", "adam_wd", "adamw", "sgd_momentum_wd", "sgd_nesterov", "sgd_groups",
+        "rmsprop", "rmsprop_momentum_wd"])
 def test_optimizer_update_matches_optax(opt_cfg):
     """Three updates on given gradients, per-group LRs scaled by 0.5 as an
     epoch's schedule would, against the JAX package's optax chains."""
@@ -410,6 +480,41 @@ def test_optimizer_update_matches_optax(opt_cfg):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[part][leaf]),
                                        rtol=1e-6, atol=1e-6)
     assert [g["name"] for g in opt.torch.param_groups] == ["emb_func", "classifier"]
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9], ids=["plain", "momentum"])
+def test_rmsprop_state_round_trips_through_state_dict(momentum):
+    """Two steps, the state saved, a fresh optimizer loaded from it: its next
+    step is the uninterrupted run's, to the bit (what ``load_last`` and the
+    resume entry point rely on)."""
+    cfg = {"name": "RMSprop", "kwargs": {"lr": 0.01, "alpha": 0.9, "eps": 1e-3,
+                                         "momentum": momentum, "weight_decay": 5e-4}}
+    rng = np.random.default_rng(4)
+    torch.manual_seed(0)
+    model = _TwoParts()
+    twin = _TwoParts()
+    twin.load_state_dict(model.state_dict())
+    opt = Optimizer(cfg, model)
+    grads = [{n: torch.from_numpy(rng.normal(size=p.shape).astype(np.float32))
+              for n, p in model.named_parameters()} for _ in range(3)]
+
+    def step(module, optimizer, g):
+        for n, p in module.named_parameters():
+            p.grad = g[n].clone()
+        optimizer.step()
+
+    for g in grads[:2]:
+        step(model, opt, g)
+    saved = copy.deepcopy(opt.state_dict())  # as a checkpoint file holds it
+    keys = {"square_avg", "momentum_buffer"} if momentum else {"square_avg"}
+    assert all(set(v) == keys for v in saved["state"].values()) and saved["state"]
+    twin.load_state_dict(model.state_dict())
+    resumed = Optimizer(cfg, twin)
+    resumed.load_state_dict(saved)
+    step(model, opt, grads[2])
+    step(twin, resumed, grads[2])
+    for (n, p), q in zip(model.named_parameters(), twin.parameters()):
+        torch.testing.assert_close(q, p, rtol=0, atol=0, msg=n)
 
 
 def test_optimizer_rejects_an_unknown_name():
