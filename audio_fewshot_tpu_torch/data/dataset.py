@@ -19,13 +19,20 @@ gives the same data.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 # KOS protocol segment geometry: [1, 128, 157] log-mel segments.
 DEFAULT_NUM_MEL = 128
 DEFAULT_SEGMENT_FRAMES = 157
+
+
+def segment_shape(config: Dict[str, Any]) -> Tuple[int, int, int]:
+    """``[C, F, T]`` of a segment: ``spec_shape``, else one channel of 128
+    mel bins × ``segment_frames``."""
+    frames = config.get("segment_frames", DEFAULT_SEGMENT_FRAMES)
+    return tuple(config.get("spec_shape") or (1, DEFAULT_NUM_MEL, frames))
 
 
 def load_splits(path: str) -> Tuple[List[str], List[str], List[str]]:

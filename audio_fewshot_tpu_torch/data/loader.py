@@ -38,6 +38,7 @@ from .dataset import (
     load_mean_std,
     load_splits,
     parse_synthetic_root,
+    segment_shape,
 )
 from .sampler import EpisodeIndices, EpisodicSampler
 
@@ -98,13 +99,12 @@ def build_dataset(config: Dict[str, Any], mode: str) -> SpectrogramDataset:
         max_seg = 1 if mode == "train" else (
             int(config.get("max_segments_per_clip") or 8)
         )
-        spec_shape = tuple(config.get("spec_shape") or (1, 128, seg_frames))
         # synthetic OOD twin: same classes, shifted generator seed
         ood_shift = 100 if (mode == "test" and config.get("ood")) else 0
         return SpectrogramDataset.synthetic(
             num_classes=sizes[mode],
             clips_per_class=syn["clips_per_class"],
-            segment_shape=spec_shape,
+            segment_shape=segment_shape(config),
             max_segments=max_seg,
             seed=int(config.get("seed", 0)) + _SPLIT_INDEX[mode] + ood_shift,
             class_offset=offsets[mode],

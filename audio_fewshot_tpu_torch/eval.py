@@ -4,56 +4,164 @@
 ``Test(rank, config, result_path, device).test_loop()`` runs the energy
 calibration pass on the val split (for methods that support it), one
 warm-up step, then ``test_epoch`` passes over the test loader, and reports
-a 95 % CI per epoch and over the epoch means.  It runs on ``cuda`` unless
-``device`` says otherwise, and raises when no card is there.
+a 95 % CI per epoch and over the epoch means.  With
+``enhance_classification_via_energy`` each test step is ``tta_eval_step``,
+the energy-OOD TTA re-vote.  It runs on ``cuda`` unless ``device`` says
+otherwise, and raises when no card is there.
 
-The energy-OOD TTA re-vote (``enhance_classification_via_energy``) and
-``dump_features`` are not ported yet and raise ``NotImplementedError``.
+``dump_features`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .config import Config
-from .data import get_dataloader
+from .data import get_dataloader, get_mean_std
 from .data.bank import resolve_transfer_dtype, setup_segment_banks
-from .episode import materialize_episode_batch
+from .data.dataset import load_mean_std
+from .episode import EpisodeBatch, materialize_episode_batch
 from .models import build_method, eval_setting
-from .models.base import MethodBase
+from .models.base import EpisodeSetting, MethodBase
+from .ops.audio_augmentations import batch_augment_spectrogram
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
+from .utils.aggregate import clip_vote_counts
 from .utils.checkpoint import BEST, load_model
 
 
-def slice_config(test_episode: int = 64, test_epoch: int = 2,
-                 precision: str = "bf16") -> Dict[str, Any]:
-    """The full-width DeepBDC + resnet12Bdc eval cell that ``chip_smoke.py``
-    and ``profile_eval`` run on the card.
-
-    ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml`` with its headers, as a
-    dict (no YAML needed), cut to size: ``test_episode`` 600 → 64 and
-    ``test_epoch`` 5 → 2 by default, ``max_segments_per_clip`` 6, 16 episodes
-    per step, and a ``synthetic`` root of ``[1, 128, 157]`` segments, since no
-    dataset ships with the repository."""
-    return Config(None, {
+#: the model part of each shipped config that a chip cell runs (the
+#: classifier, the backbone with its include's kwargs, the tag)
+SLICE_MODELS = {
+    "DeepBDC": {
         "classifier": {"name": "DeepBDC", "kwargs": None},
-        "backbone": {"name": "resnet12Bdc",
-                     "kwargs": {"num_channels": 1, "reduce_dim": 64}},
-        "modality": "audio",
+        "backbone": {"name": "resnet12Bdc", "kwargs": {"num_channels": 1, "reduce_dim": 64}},
+        "tag": "deepbdc_5shot_iid_seed0",
+    },
+    "ProtoNet": {
+        "classifier": {"name": "ProtoNet", "kwargs": None},
+        "backbone": {"name": "Conv64F", "kwargs": {
+            "is_flatten": True, "is_feature": False, "leaky_relu": False,
+            "negative_slope": 0.2, "last_pool": True, "maxpool_last2": True,
+            "num_channels": 1}},
+        "tag": "proto_5shot_iid_seed0",
+    },
+}
+
+
+def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
+                 classifier: str = "DeepBDC", test_episode_size: int = 16) -> Dict[str, Any]:
+    """A full-width eval cell that ``chip_smoke.py`` and ``profile_eval``
+    run on the card.
+
+    ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
+    (resnet12Bdc, ``reduce_dim`` 64); ``"ProtoNet"``:
+    ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F with the 64 → 1600
+    logits head).  Either with its headers, as a dict (no YAML needed), cut
+    to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
+    ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16
+    by default), and a ``synthetic`` root of ``[1, 128, 157]`` segments,
+    since no dataset ships with the repository."""
+    return Config(None, {
+        **copy.deepcopy(SLICE_MODELS[classifier]), "modality": "audio",
         "way_num": 5, "shot_num": 5, "query_num": 10,
-        "seed": 0, "ood": False, "tag": "deepbdc_5shot_iid_seed0",
+        "seed": 0, "ood": False,
         "data_root": "synthetic",
         "spec_shape": [1, 128, 157],
         "max_segments_per_clip": 6,
-        "test_episode_size": 16,
+        "test_episode_size": test_episode_size,
         "test_episode": test_episode,
         "test_epoch": test_epoch,
         "precision": precision,
     }).get_config_dict()
+
+
+def resolve_tta_stats(cfg: Dict[str, Any], logger) -> Tuple[float, float]:
+    """De/re-normalisation stats of the energy-OOD TTA pass.
+
+    The reference always loads the Clean stats here, whatever the config's
+    ``mean_std_file`` (``tta_mean_std_file``, default
+    ``./Auxiliary/Clean_Mean_Std.npy``, which ships).  A missing file fails
+    loudly, unless ``tta_allow_config_stats: true`` opts into the config's
+    own stats."""
+    clean = cfg.get("tta_mean_std_file", "./Auxiliary/Clean_Mean_Std.npy")
+    if clean and os.path.isfile(clean):
+        return load_mean_std(clean)
+    if cfg.get("tta_allow_config_stats", False):
+        logger.warning(
+            "Clean stats %s not found — TTA falls back to the config's "
+            "mean_std_file (tta_allow_config_stats=True)", clean,
+        )
+        return get_mean_std(cfg, "test")
+    raise FileNotFoundError(
+        f"energy-OOD TTA requires the Clean normalization stats "
+        f"({clean!r} not found). The reference hard-codes "
+        f"./Auxiliary/Clean_Mean_Std.npy for the de/re-norm step; falling "
+        f"back to the config's own stats would silently change semantics. "
+        f"Provide the file (tools/make_assets.py regenerates it), point "
+        f"tta_mean_std_file at it, or set tta_allow_config_stats: true to "
+        f"opt into the fallback."
+    )
+
+
+def flagged_segments(batch: EpisodeBatch, ep_idx: torch.Tensor, clip_idx: torch.Tensor,
+                     cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The valid query segments of each flagged clip (episode ``ep_idx[k]``,
+    clip ``clip_idx[k]``), in their order, at most ``cap`` of them:
+    ``[K, S, C, H, W]`` and their validity ``[K, S]`` (S = min(cap, G))."""
+    is_clip = (batch.query_clip[ep_idx] == clip_idx[:, None]) & (batch.query_mask[ep_idx] > 0)
+    cap = min(cap, is_clip.shape[1])
+    # a stable sort puts each flagged clip's segments first, in their order
+    order = torch.argsort((~is_clip).to(torch.uint8), dim=1, stable=True)[:, :cap]
+    return batch.query[ep_idx[:, None], order], is_clip.gather(1, order)
+
+
+def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetting,
+                  generator: torch.Generator, *, tta_mean: float, tta_std: float,
+                  num_augmentations: int, tta_segments_per_clip: int, bank=None,
+                  augment: Optional[Callable] = None) -> torch.Tensor:
+    """Energy-OOD + TTA re-classification, per-episode accuracy ``[E]``.
+
+    Flag the top-20 % most-uncertain query clips (``method.ood_topk``),
+    REPLACE each flagged clip's segments with ``num_augmentations``
+    augmented copies of each, and take the majority vote again over the
+    augmented pool (the original segments are not re-scored).  The segment
+    gather is per clip and exact: all valid segments of a flagged clip, in
+    order, capped at ``tta_segments_per_clip``.  The copies are
+    noise-suppressed (``batch_augment_spectrogram``), unless ``augment``
+    (called as ``augment(segments, mean, std, num_augmentations, generator)``)
+    makes them: a test can hand in given ones."""
+    if bank is not None:
+        batch = materialize_episode_batch(batch, bank)
+    sup_f, qry_f = method.embed(batch)
+    seg_logits = method.feature_logits(sup_f, qry_f, setting)
+
+    wq = batch.num_query_clips
+    uncertains, _ = method.clip_uncertainty(seg_logits, batch)
+    top_idx = method.ood_topk(uncertains)
+    k, m = top_idx.shape[0], num_augmentations
+    ep_idx, clip_idx = top_idx // wq, top_idx % wq
+    segments, seg_valid = flagged_segments(batch, ep_idx, clip_idx, tta_segments_per_clip)
+    s_cap = seg_valid.shape[1]
+    flat = segments.reshape((k * s_cap,) + segments.shape[2:])
+    aug = (batch_augment_spectrogram(flat, tta_mean, tta_std, m, "noise_suppression", generator)
+           if augment is None else augment(flat, tta_mean, tta_std, m, generator))  # [K*S*M, ...]
+    aug_f = method.embed_segments(aug).reshape(k, s_cap * m, -1)
+    # each flagged clip scores against its own episode's support set
+    aug_logits = method.feature_logits(sup_f[ep_idx], aug_f, setting)
+
+    votes = clip_vote_counts(seg_logits, batch.query_clip, batch.query_mask, wq)  # [E, Wq, way]
+    way = votes.shape[-1]
+    aug_pred = F.one_hot(aug_logits.argmax(dim=-1), way).float().reshape(k, s_cap, m, way)
+    aug_votes = (aug_pred * seg_valid[:, :, None, None].float()).sum(dim=(1, 2))  # [K, way]
+    votes = votes.index_put((ep_idx, clip_idx), aug_votes)
+    preds = votes.argmax(dim=-1)
+    return (preds == batch.query_target).float().mean(dim=-1) * 100.0
 
 
 class Test:
@@ -63,12 +171,6 @@ class Test:
                  result_path: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        if config.get("enhance_classification_via_energy"):
-            raise NotImplementedError(
-                "enhance_classification_via_energy: the energy-OOD TTA re-vote "
-                "(eval.tta_eval_step, ops/audio_augmentations.py) is the TTA "
-                "slice of the port and is not ported yet"
-            )
         if config.get("dump_features"):
             raise NotImplementedError("dump_features is not ported yet")
         if config.get("precision", "bf16") == "fp32":
@@ -102,6 +204,18 @@ class Test:
         self.val_bank, self.test_bank = self._setup_segment_banks()
         #: episodes per second of each test epoch (host clock, synchronised)
         self.epoch_eps: List[float] = []
+        requested = bool(config.get("enhance_classification_via_energy", False))
+        supported = getattr(self.method, "supports_energy_ood", False)
+        if requested and not supported:
+            self.logger.warning("enhance_classification_via_energy: %s has no energy-OOD "
+                                "pass; the test runs without TTA", config["classifier"]["name"])
+        self.enhance_via_energy = requested and supported
+        self.num_augmentations = int(config.get("num_augmentations", 10))
+        # max_segments_per_clip 0 is the loader's "unlimited" sentinel: the
+        # TTA's segment cap stays positive
+        self.tta_segments_per_clip = int(config.get("tta_segments_per_clip")
+                                         or config.get("max_segments_per_clip") or 8)
+        self.tta_mean, self.tta_std = 0.0, 1.0
 
     def _load_model(self) -> None:
         ckpt = (os.path.join(self.result_path, "checkpoints", BEST)
@@ -125,12 +239,22 @@ class Test:
             return None, banks[0]
         return banks[0], banks[1]
 
-    def _eval_step(self, host_batch) -> torch.Tensor:
-        """Per-episode accuracy ``[E]`` (on the device) of one host batch."""
-        if self.test_bank is not None:
-            batch = materialize_episode_batch(host_batch.to(self.device), self.test_bank)
-        else:
+    def _eval_step(self, host_batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-episode accuracy ``[E]`` (on the device) of one host batch;
+        with the energy-OOD TTA on, its re-vote with draws from
+        ``generator``."""
+        if self.test_bank is None:
             batch = host_batch.to(self.device, self.transfer_dtype)
+        else:
+            batch = host_batch.to(self.device)
+        if self.enhance_via_energy:
+            return tta_eval_step(
+                self.method, batch, self.setting, generator,
+                tta_mean=self.tta_mean, tta_std=self.tta_std,
+                num_augmentations=self.num_augmentations,
+                tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank)
+        if self.test_bank is not None:
+            batch = materialize_episode_batch(batch, self.test_bank)
         seg_logits = self.method(batch, self.setting)
         return self.method.eval_episode_accuracy(seg_logits, batch)
 
@@ -148,19 +272,33 @@ class Test:
                 dump_path=dump, bank=self.val_bank,
             )
             self.logger.info("uncertainty threshold: %s", th)
+        if self.enhance_via_energy:
+            self.tta_mean, self.tta_std = resolve_tta_stats(cfg, self.logger)
+            self.logger.info("energy-OOD TTA enabled: %d augmentations, top %.0f%% flagged",
+                             self.num_augmentations, 100 * self.method.ood_fraction)
+        # the TTA's draws: one generator seeded seed + 7, split into a
+        # generator of its own per step
+        master = torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 7)
+
+        def step_generator() -> Optional[torch.Generator]:
+            if not self.enhance_via_energy:
+                return None
+            return torch.Generator().manual_seed(int(torch.randint(2 ** 62, (), generator=master)))
 
         if cfg.get("eval_warmup", True):
             # one discarded step: cuDNN plans and the kernel build stay out
             # of the epoch timer
             t0 = time.time()
-            self._eval_step(next(iter(self.test_loader[0].epoch(0)))).cpu()
+            self._eval_step(next(iter(self.test_loader[0].epoch(0))),
+                            torch.Generator().manual_seed(0)).cpu()
             self.logger.info("eval step warmed in %.1fs", time.time() - t0)
 
         epoch_means: List[float] = []
         for epoch in range(n_epochs):
             t0 = time.time()
             # results stay on the device until the epoch ends: one host sync
-            pending = [self._eval_step(b) for b in self.test_loader[0].epoch(epoch)]
+            pending = [self._eval_step(b, step_generator())
+                       for b in self.test_loader[0].epoch(epoch)]
             accs = torch.cat(pending).cpu().tolist() if pending else []
             dt = time.time() - t0
             mean, ci = mean_confidence_interval(accs)

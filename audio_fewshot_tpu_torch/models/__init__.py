@@ -1,5 +1,6 @@
 """Method builders (counterpart of ``audio_fewshot_tpu/models/__init__.py``)."""
 
+import inspect
 from typing import Any, Dict
 
 import torch
@@ -11,24 +12,64 @@ from .base import EpisodeSetting, MethodBase, ModelType
 _PRECISIONS = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def _takes(factory, name: str) -> bool:
+    """Whether ``factory``'s signature names ``name`` (or takes ``**kwargs``)."""
+    params = inspect.signature(factory).parameters
+    return name in params or any(p.kind is p.VAR_KEYWORD for p in params.values())
+
+
+def _build_backbone(config: Dict[str, Any], cls_factory) -> torch.nn.Module:
+    """The configured backbone, with the knobs the classifier and the port
+    inject.
+
+    - ``requires_batch_stat_bn`` on the classifier forces
+      ``use_running_statistics=False`` (the MAML family applies the backbone
+      under adapted parameters and keeps every BN on batch statistics);
+      ``backbone_kwarg_defaults`` sets finer knobs (e.g. DMatchingNet's
+      running-statistics logits BN1d on Conv64F).
+    - ``spec_shape`` (the segment's ``[C, F, T]``): torch infers no shapes,
+      so Conv64F sizes its logits head from it.
+
+    A config's own backbone kwargs win.  An injected knob reaches only a
+    backbone whose factory's signature names it (``layers.backbone_factory``
+    gives every registered backbone its class's signature); a user-given
+    kwarg the backbone does not take still raises."""
+    from ..data.dataset import segment_shape
+
+    backbone = dict(config["backbone"])
+    factory = BACKBONES.get(backbone["name"])
+    bk_kwargs = dict(backbone.get("kwargs") or {})
+    bk_kwargs.setdefault("num_channels", 1 if config.get("modality") == "audio" else 3)
+    knobs = {}
+    if getattr(cls_factory, "requires_batch_stat_bn", False):
+        knobs["use_running_statistics"] = False
+    knobs.update(getattr(cls_factory, "backbone_kwarg_defaults", None) or {})
+    knobs["spec_shape"] = segment_shape(config)
+    bk_kwargs.update({k: v for k, v in knobs.items()
+                      if k not in bk_kwargs and _takes(factory, k)})
+    bk_kwargs.setdefault("dtype", _PRECISIONS[config.get("precision", "bf16")])
+    return factory(**bk_kwargs)
+
+
 def build_method(config: Dict[str, Any]) -> MethodBase:
     """Config → method (an ``nn.Module`` on the CPU; the caller moves it).
 
-    ``precision`` (default ``bf16``) is the backbone's compute dtype; the BDC
-    head and the logits always compute in float32.  The builder leaves the
-    process's TF32 switches alone: ``Test`` turns TF32 off for ``fp32`` runs."""
+    ``precision`` (default ``bf16``) is the backbone's compute dtype; the
+    heads and the logits always compute in float32.  This function leaves
+    the process's TF32 switches alone: ``Test`` and ``Trainer`` turn TF32 off
+    for ``fp32`` runs.  ``is_clap`` (the CLAP encoder in place of the configured
+    backbone) is not ported yet and raises."""
     precision = config.get("precision", "bf16")
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
+    if config.get("is_clap"):
+        raise NotImplementedError(
+            "is_clap: the CLAP encoder backbone (clap_encoder.py, "
+            "CLAPEmbeddingBackbone) is not ported yet (ROADMAP Queue A item 9)")
 
-    backbone = dict(config["backbone"])
-    bk_kwargs = dict(backbone.get("kwargs") or {})
-    bk_kwargs.setdefault("num_channels", 1 if config.get("modality") == "audio" else 3)
-    bk_kwargs.setdefault("dtype", _PRECISIONS[precision])
-    emb_func = BACKBONES.build(backbone["name"], **bk_kwargs)
-
+    cls_factory = CLASSIFIERS.get(config["classifier"]["name"])
     cls_kwargs = dict(config["classifier"].get("kwargs") or {})
-    cls_kwargs["emb_func"] = emb_func
+    cls_kwargs["emb_func"] = _build_backbone(config, cls_factory)
     # episode-geometry kwargs, as the reference passes to every classifier
     for key, val in (
         ("way_num", config.get("way_num")),
@@ -37,7 +78,7 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     ):
         if val is not None:
             cls_kwargs.setdefault(key, val)
-    return CLASSIFIERS.build(config["classifier"]["name"], **cls_kwargs)
+    return cls_factory(**cls_kwargs)
 
 
 def train_setting(config: Dict[str, Any]) -> EpisodeSetting:

@@ -11,6 +11,10 @@
 
 from __future__ import annotations
 
+import functools
+import inspect
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -25,37 +29,162 @@ class Conv2d(nn.Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
-class BatchNorm(nn.BatchNorm2d):
+class _FlaxBatchNorm:
+    """Train-mode statistics as flax takes them, for ``BatchNorm`` and
+    ``BatchNorm1d``.
+
+    - The running variance is updated with the *biased* batch variance
+      (torch uses the unbiased one, n/(n-1) larger).
+    - ``mask`` (``[N]`` bool, True = the row contributes) restricts the batch
+      statistics, and their running update, to the valid rows, as flax's
+      ``nn.BatchNorm(mask=...)`` does: heads whose batch-statistics BNs run
+      over bucket-padded batches keep the padding out of the real rows'
+      normalisation.  Under running statistics (eval) it changes nothing.
+    """
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        batch_stats = self.training or not self.track_running_stats
+        update = self.training and self.track_running_stats
+        if not batch_stats or (mask is None and not update):
+            return super().forward(x)
+        if mask is None:
+            # momentum 1 into scratch buffers: they receive the batch mean and
+            # the unbiased batch variance from the library's own training kernel
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            n = x.numel() // x.shape[1]
+            var = var * ((n - 1) / n)
+        else:
+            out, mean, var = self._masked(x, mask)
+        if update:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked.add_(1)
+        return out
+
+    def _masked(self, x: torch.Tensor, mask: torch.Tensor):
+        """Output, mean and biased variance over the rows where ``mask``, in
+        float32 at least (float64 stays float64)."""
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        w = mask.to(xs.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+        count = w.sum() * (xs[0, 0].numel())
+        mean = (xs * w).sum(dims) / count
+        var = (((xs - mean.reshape(shape)) ** 2) * w).sum(dims) / count
+        y = (xs - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
+        if self.weight is not None:
+            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype), mean, var
+
+
+class BatchNorm(_FlaxBatchNorm, nn.BatchNorm2d):
     """``BatchNorm2d`` with torch ``track_running_stats`` semantics
     (``use_running_statistics=False``: batch statistics in train AND eval).
     eps 1e-5, momentum 0.1 (flax momentum 0.9).  Float32 parameters and
     statistics (reduced in float32 on bf16 input); the output keeps the
-    input's dtype.
-
-    In train mode the running variance follows flax, not torch: it is
-    updated with the *biased* batch variance (torch uses the unbiased one,
-    n/(n-1) larger)."""
+    input's dtype.  Train mode and ``mask`` as ``_FlaxBatchNorm``."""
 
     def __init__(self, num_features: int, use_running_statistics: bool = True):
         super().__init__(num_features, eps=1e-5, momentum=0.1,
                          track_running_stats=use_running_statistics)
 
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """``BatchNorm1d`` over ``[N, D]`` with the semantics of ``BatchNorm``
+    (Conv64F's logits head)."""
+
+    def __init__(self, num_features: int, use_running_statistics: bool = True):
+        super().__init__(num_features, eps=1e-5, momentum=0.1,
+                         track_running_stats=use_running_statistics)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (keep with probability 1 − ``rate``, scale the kept
+    values by 1 / (1 − ``rate``)), as flax's ``nn.Dropout``.  The mask comes
+    from the module's own ``torch.Generator`` on the input's device, seeded
+    by ``seed_dropout``, never from the global RNG.  The identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.seed = 0
+        self.generator: Optional[torch.Generator] = None
+
+    def reseed(self, seed: int) -> None:
+        self.seed = int(seed)
+        self.generator = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and self.track_running_stats):
-            return super().forward(x)
-        # momentum 1 into scratch buffers: they receive the batch mean and
-        # the unbiased batch variance from the library's own training kernel
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.ones_like(self.running_var)
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
-            self.num_batches_tracked.add_(1)
-        return out
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        keep_prob = 1.0 - self.rate
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+        return torch.where(keep.bool(), x / keep_prob, torch.zeros_like(x))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
-def clean_kwargs(kwargs):
-    """Drop None-valued config kwargs (YAML ``~``/null passthrough)."""
-    return {k: v for k, v in kwargs.items() if v is not None}
+def seed_dropout(module: nn.Module, seed: int) -> None:
+    """Seed every ``Dropout`` of ``module``, each (in module order) with its
+    own seed drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.reseed(int(torch.randint(2 ** 62, (), generator=gen)))
+
+
+def activation_fn(leaky_relu: bool, negative_slope: float) -> Callable:
+    if leaky_relu:
+        return functools.partial(F.leaky_relu, negative_slope=negative_slope)
+    return F.relu
+
+
+class ConvBnAct(nn.Sequential):
+    """Conv3×3 → BN → activation, the four-conv-block unit.  A 3×3 "SAME"
+    conv at stride 1 is symmetric padding 1.  State-dict keys ``0.*`` (conv)
+    and ``1.*`` (BN), the reference ``layer{i}`` Sequential's."""
+
+    def __init__(self, in_channels: int, features: int, use_running_statistics: bool = True,
+                 leaky_relu: bool = False, negative_slope: float = 0.2, use_bias: bool = True):
+        super().__init__(Conv2d(in_channels, features, 3, padding=1, bias=use_bias),
+                         BatchNorm(features, use_running_statistics))
+        self.act = activation_fn(leaky_relu, negative_slope)
+
+    def forward(self, x: torch.Tensor, sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # sample_mask: [N] bool, the rows that contribute to batch statistics
+        return self.act(self[1](self[0](x), sample_mask))
+
+
+def floor_power(num: int, divisor: int, power: int) -> int:
+    """``num`` floor-divided by ``divisor`` ``power`` times: a side of a map
+    after ``power`` floor pools of stride ``divisor`` (it sizes Conv64F's
+    logits head, as in the reference)."""
+    for _ in range(power):
+        num = num // divisor
+    return num
+
+
+def backbone_factory(build: Callable[..., nn.Module], *ignored: str) -> Callable[..., nn.Module]:
+    """The registry factory of ``build`` (a backbone class, or a partial of
+    one).
+
+    It drops None-valued config kwargs (YAML ``~``/null passthrough) and the
+    ``ignored`` names (kwargs that shipped configs carry through a stale
+    include, which this backbone ignores as the JAX package does); any other
+    kwarg ``build`` does not take raises.  Its signature is ``build``'s plus
+    ``ignored``: ``build_method`` passes it only the injected knobs it names."""
+
+    def factory(**kwargs):
+        return build(**{k: v for k, v in kwargs.items() if v is not None and k not in ignored})
+
+    params = list(inspect.signature(build).parameters.values())
+    params += [inspect.Parameter(k, inspect.Parameter.KEYWORD_ONLY, default=None)
+               for k in ignored]
+    factory.__signature__ = inspect.Signature(params)
+    return factory

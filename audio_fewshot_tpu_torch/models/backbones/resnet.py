@@ -24,7 +24,7 @@ from torch import nn
 
 from ...ops.bdc_cuda import bdc_pool_triu
 from ...registry import BACKBONES
-from .layers import BatchNorm, Conv2d, clean_kwargs
+from .layers import BatchNorm, Conv2d, backbone_factory
 
 
 class BasicBlock3(nn.Module):
@@ -126,8 +126,5 @@ class ResNet12BDC(nn.Module):
         return self.bdc_pool(x)
 
 
-@BACKBONES.register("resnet12Bdc")
-def resnet12bdc(**kwargs):
-    kwargs.pop("avg_pool", None)
-    kwargs.pop("keep_prob", None)
-    return ResNet12BDC(**clean_kwargs(kwargs))
+resnet12bdc = BACKBONES.register("resnet12Bdc")(
+    backbone_factory(ResNet12BDC, "avg_pool", "keep_prob"))

@@ -1,3 +1,3 @@
 """Method (classifier) registry."""
 
-from . import deepbdc  # noqa: F401  (registers DeepBDC)
+from . import deepbdc, proto_net  # noqa: F401  (register DeepBDC and ProtoNet)

@@ -11,7 +11,7 @@ machinery (counterpart of ``audio_fewshot_tpu/models/heads/deepbdc.py``).
 
 - ``loss``: masked per-segment cross-entropy over the same logits.
 
-The TTA re-vote that consumes the flags comes with a later slice.
+``eval.tta_eval_step`` consumes the flags (the TTA re-vote).
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ class DeepBDC(MethodBase):
     def __init__(self, emb_func, use_bpa: bool = False, **kwargs):
         super().__init__(emb_func, **kwargs)
         if use_bpa:
-            raise NotImplementedError("use_bpa (ops/bpa.py) is not ported yet")
+            raise NotImplementedError(
+                "use_bpa (ops/bpa.py) is not ported yet (ROADMAP Queue A item 6)")
         self.uncertain_global_threshold: Optional[float] = None
         self.uncertains_mean: Optional[float] = None
         self.uncertains_std: Optional[float] = None

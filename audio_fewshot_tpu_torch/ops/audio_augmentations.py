@@ -1,5 +1,5 @@
-"""Spectrogram augmentations for training, in plain PyTorch (counterpart of
-the train part of ``audio_fewshot_tpu/ops/audio_augmentations.py``).
+"""Spectrogram augmentations for training and TTA, in plain PyTorch
+(counterpart of ``audio_fewshot_tpu/ops/audio_augmentations.py``).
 
 Every augmentation is split in two:
 
@@ -12,15 +12,19 @@ Every augmentation is split in two:
 
 ``augment_batch_one_type`` is the train-time entry: de-normalise, ONE
 randomly drawn type for the whole batch (sample-level randomness from the
-per-sample draws), re-normalise.  Quantiles of the |·| planes run 24 fixed
-bisection steps (``bisect_quantile``), as in the JAX package; the temporal
-percentile of the background subtraction is an exact linear-interpolation
-quantile.
+per-sample draws), re-normalise.  ``augment_spectrogram`` and
+``batch_augment_spectrogram`` are the dispatchers of the energy-OOD TTA
+(which always asks for ``noise_suppression``): one type or a type per
+sample, ``num_augmentations`` versions of each sample.
+
+Quantiles of the |·| planes run 24 fixed bisection steps
+(``bisect_quantile``), as in the JAX package; the temporal percentile of
+the background subtraction is an exact linear-interpolation quantile.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -294,3 +298,49 @@ def augment_batch_one_type(specs: torch.Tensor, mean: float, std: float,
     h, w = specs.shape[-2:]
     return augment_batch_with(specs, mean, std, name,
                               draw_params(name, specs.shape[0], h, w, generator))
+
+
+def augment_spectrogram(specs: torch.Tensor, mean: float, std: float,
+                        augmentation_type: str = "random",
+                        generator: Optional[torch.Generator] = None,
+                        params: Optional[Dict] = None) -> torch.Tensor:
+    """De-normalise → augment → re-normalise each sample of ``specs``
+    ``[N, ..., H, W]`` (the JAX package's per-sample dispatcher over a batch).
+
+    - A named ``augmentation_type``: ``params`` are its per-sample values in
+      ``draw_params``' form, drawn from ``generator`` when None.
+    - ``"random"``: each sample draws its own type, and each type runs once
+      on its group of samples (no branch runs on a sample that did not draw
+      it).  ``params``, when given: ``{"types": [N] indices into
+      AUGMENTATION_TYPES, name: values of that type's samples in order}``.
+    """
+    if augmentation_type != "random":
+        if params is None:
+            params = draw_params(augmentation_type, specs.shape[0], *specs.shape[-2:], generator)
+        return augment_batch_with(specs, mean, std, augmentation_type, params)
+    n = specs.shape[0]
+    types = (torch.as_tensor(params["types"]).cpu() if params is not None
+             else torch.randint(len(AUGMENTATION_TYPES), (n,), generator=generator))
+    out = torch.empty_like(specs)
+    for i, name in enumerate(AUGMENTATION_TYPES):
+        rows = torch.nonzero(types == i).reshape(-1)
+        if rows.numel() == 0:
+            continue
+        values = (params[name] if params is not None
+                  else draw_params(name, rows.numel(), *specs.shape[-2:], generator))
+        rows = rows.to(specs.device)
+        out[rows] = augment_batch_with(specs[rows], mean, std, name, values)
+    return out
+
+
+def batch_augment_spectrogram(specs: torch.Tensor, mean: float, std: float,
+                              num_augmentations: int = 10,
+                              augmentation_type: str = "random",
+                              generator: Optional[torch.Generator] = None,
+                              params: Optional[Dict] = None) -> torch.Tensor:
+    """``[B, ...]`` → ``[B·num_augmentations, ...]``: ``num_augmentations``
+    augmented versions of each sample, sample-major (row ``b·M + j`` is
+    version ``j`` of sample ``b``), through ``augment_spectrogram``; ``params``
+    cover the B·M rows in that order."""
+    reps = specs.repeat_interleave(num_augmentations, dim=0)
+    return augment_spectrogram(reps, mean, std, augmentation_type, generator, params)

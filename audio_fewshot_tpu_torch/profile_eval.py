@@ -1,8 +1,9 @@
 """Where the time of the eval step goes on the card.
 
-    python -m audio_fewshot_tpu_torch.profile_eval [--steps 4]
+    python -m audio_fewshot_tpu_torch.profile_eval [--steps 4] [--classifier ProtoNet]
 
-Builds the eval cell of ``eval.slice_config`` (DeepBDC + resnet12Bdc,
+Builds an eval cell of ``eval.slice_config`` (``--classifier DeepBDC``, the
+default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; either at
 [1, 128, 157] segments, 16 episodes per step, bf16) through ``Test``, warms
 up, then runs ``--steps`` eval steps under ``torch.profiler`` and prints the
 device time by kernel category and the top kernels, the device-busy share
@@ -20,7 +21,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .eval import Test, slice_config
+from .eval import SLICE_MODELS, Test, slice_config
 
 # first matching substring of the kernel name decides its category
 CATEGORIES = (
@@ -70,11 +71,12 @@ def report(prof, wall_us: float, header: str) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=4)
+    parser.add_argument("--classifier", choices=sorted(SLICE_MODELS), default="DeepBDC")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device is available", file=sys.stderr)
         return 1
-    cfg = slice_config(test_episode=16 * args.steps, test_epoch=1)
+    cfg = slice_config(test_episode=16 * args.steps, test_epoch=1, classifier=args.classifier)
     test = Test(0, cfg, None, device="cuda")
     batches = list(test.test_loader[0].epoch(0))
     test._eval_step(batches[0]).cpu()  # warm-up
@@ -85,7 +87,8 @@ def main(argv=None) -> int:
             test._eval_step(batch)
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-    report(prof, wall_us, f"{len(batches)} eval steps of {cfg['test_episode_size']} episodes "
+    report(prof, wall_us, f"{args.classifier}: {len(batches)} eval steps of "
+           f"{cfg['test_episode_size']} episodes "
            f"({wall_us / 1e3 / len(batches):.1f} ms/step)")
     return 0
 

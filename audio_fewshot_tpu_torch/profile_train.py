@@ -1,9 +1,10 @@
 """Where the time of the train step goes on the card.
 
-    python -m audio_fewshot_tpu_torch.profile_train [--steps 8]
+    python -m audio_fewshot_tpu_torch.profile_train [--steps 8] [--classifier ProtoNet]
 
-Builds the training cell of ``train.slice_config`` (DeepBDC + resnet12Bdc,
-[1, 128, 157] segments, one 5-way 5-shot 10-query episode a step, bf16,
+Builds a training cell of ``train.slice_config`` (``--classifier DeepBDC``,
+the default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; either
+at [1, 128, 157] segments, one 5-way 5-shot 10-query episode a step, bf16,
 Adam, augmentation on) through ``Trainer``, runs a few warm-up steps, then
 ``--steps`` train steps under ``torch.profiler`` (each as the train loop
 runs it: batch to the device, augmentation, loss, backward, optimizer step,
@@ -23,6 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .profile_eval import report
+from .eval import SLICE_MODELS
 from .train import Trainer, slice_config
 
 WARMUP_STEPS = 3
@@ -31,12 +33,13 @@ WARMUP_STEPS = 3
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=8)
+    parser.add_argument("--classifier", choices=sorted(SLICE_MODELS), default="DeepBDC")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
         return 1
     with tempfile.TemporaryDirectory() as result_root:
-        cfg = slice_config(result_root)
+        cfg = slice_config(result_root, classifier=args.classifier)
         cfg["train_episode"] = WARMUP_STEPS + args.steps
         trainer = Trainer(0, cfg, device="cuda")
         trainer.method.train()
@@ -58,7 +61,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_us = (time.time() - t0) * 1e6
     n = len(batches) - WARMUP_STEPS
-    report(prof, wall_us, f"{n} train steps of 75 segments ({wall_us / 1e3 / n:.1f} ms/step)")
+    report(prof, wall_us, f"{args.classifier}: {n} train steps of 75 segments "
+           f"({wall_us / 1e3 / n:.1f} ms/step)")
     return 0
 
 

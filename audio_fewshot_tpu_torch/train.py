@@ -18,6 +18,7 @@ FINETUNING training.
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -28,8 +29,11 @@ from .config import Config, save_config
 from .data import get_dataloader, get_mean_std
 from .data.bank import resolve_transfer_dtype, setup_segment_banks
 from .episode import EpisodeBatch, materialize_episode_batch
+from .eval import SLICE_MODELS
 from .models import build_method, eval_setting, train_setting
+from .models.backbones.layers import seed_dropout
 from .models.base import MethodBase, ModelType
+from .models.init import init_weights
 from .ops.audio_augmentations import augment_batch_one_type
 from .optim import LRScheduler, Optimizer, build_optimizer, build_scheduler
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
@@ -37,24 +41,24 @@ from .utils.checkpoint import LAST, SaveType, load_last, load_part, save_model
 from .utils.meters import AverageMeter, TensorboardWriter
 
 
-def slice_config(result_root: str) -> Dict[str, Any]:
-    """The full-width DeepBDC + resnet12Bdc training cell that
-    ``chip_smoke.py`` runs on the card.
+def slice_config(result_root: str, classifier: str = "DeepBDC") -> Dict[str, Any]:
+    """A full-width training cell that ``chip_smoke.py`` runs on the card.
 
-    ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml`` with its headers, as a
-    dict (no YAML needed): planes 64/160/320/640, ``reduce_dim`` 64, 5-way
-    5-shot 10-query on ``[1, 128, 157]`` segments, one episode a step (75
-    segments), bf16 backbone and fp32 head, Adam at lr 0.005 with
-    CosineAnnealingLR(T_max 100), ``augment: true`` with the Clean mean/std.
-    Cut to size: ``epoch`` 30 → 2, ``train_episode`` 1000 → 40,
-    ``test_episode`` (val and test) 600 → 32, and a ``synthetic`` root, since
-    no dataset ships with the repository."""
+    ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
+    (resnet12Bdc, planes 64/160/320/640, ``reduce_dim`` 64);
+    ``"ProtoNet"``: ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F
+    with ``is_flatten``: the 64 → 1600 logits head).  Either with its
+    headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
+    ``[1, 128, 157]`` segments, one episode a step (75 segments), bf16
+    backbone and fp32 head, Adam at lr 0.005 with CosineAnnealingLR(T_max
+    100), ``augment: true`` with the Clean mean/std.  Cut to size: ``epoch``
+    30 → 2, ``train_episode`` 1000 → 40, ``test_episode`` (val and test) 600
+    → 32, and a ``synthetic`` root, since no dataset ships with the
+    repository."""
     return Config(None, {
-        "classifier": {"name": "DeepBDC", "kwargs": None},
-        "backbone": {"name": "resnet12Bdc", "kwargs": {"num_channels": 1, "reduce_dim": 64}},
+        **copy.deepcopy(SLICE_MODELS[classifier]),
         "modality": "audio", "way_num": 5, "shot_num": 5, "query_num": 10,
-        "seed": 0, "ood": False, "tag": "deepbdc_5shot_iid_seed0",
-        "data_root": "synthetic", "spec_shape": [1, 128, 157],
+        "seed": 0, "ood": False, "data_root": "synthetic", "spec_shape": [1, 128, 157],
         "mean_std_file": "./Auxiliary/Clean_Mean_Std.npy",
         "class_per_split": "./Auxiliary/KOS_paper_splits.npy",
         "augment": True, "epoch": 2, "train_episode": 40, "test_episode": 32,
@@ -88,6 +92,9 @@ class Trainer:
         self.seed = int(config.get("seed", 0))
         init_seed(self.seed)  # the initial weights
         self.method: MethodBase = build_method(config)
+        if config.get("init_type"):
+            init_weights(self.method, config["init_type"],
+                         torch.Generator().manual_seed(self.seed))
         self.train_setting = train_setting(config)
         self.eval_setting = eval_setting(config)
         modality = config.get("modality", "audio")
@@ -233,9 +240,11 @@ class Trainer:
         log_interval = int(cfg.get("log_interval", 100))
         episode_size = int(cfg.get("episode_size", 1))
         n_steps = len(self.train_loader[0])
-        # augmentation draws per epoch: a resumed run draws what an
-        # uninterrupted one would
+        # augmentation and dropout draws per epoch: a resumed run draws what
+        # an uninterrupted one would.  The dropout seed is the first draw of
+        # the epoch's stream, so no two streams share a seed
         gen = torch.Generator().manual_seed(self.seed * 100003 + epoch)
+        seed_dropout(self.method, int(torch.randint(2 ** 62, (), generator=gen)))
         self.method.train()
         losses: List[float] = []
         t_epoch = t_end = time.time()

@@ -48,6 +48,12 @@ def average_logits(
     return torch.where(counts > 0, sums / counts.clamp(min=1.0), torch.zeros_like(sums))
 
 
+def vote_categorical_acc(targets: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:
+    """Clip-level accuracy in percent of clip ``predictions`` against
+    ``targets``."""
+    return (predictions == targets).float().mean() * 100.0
+
+
 def segment_accuracy(seg_logits: torch.Tensor, seg_target: torch.Tensor, mask=None) -> torch.Tensor:
     """Top-1 per-segment accuracy in percent (masked segments left out)."""
     correct = (seg_logits.argmax(dim=-1) == seg_target).float()

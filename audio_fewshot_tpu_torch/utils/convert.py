@@ -1,11 +1,13 @@
 """JAX package variables → the port's state dict.
 
-The port's own copy of ``_invert_resnet12`` / ``_invert_resnet12bdc`` in
-``audio_fewshot_tpu/utils/torch_convert.py``: flax conv kernels HWIO → torch
-OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
-(batch_stats) → ``weight``/``bias``/``running_mean``/``running_var``.  The
-variables arrive as nested dicts of numpy arrays, so this module needs no
-JAX.
+The port's own copy of ``_invert_convnf`` / ``_invert_resnet12`` /
+``_invert_resnet12bdc`` in ``audio_fewshot_tpu/utils/torch_convert.py``, and
+the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` (which have
+no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
+[in, out] → Linear [out, in]; BatchNorm ``scale``/``bias`` (params) and
+``mean``/``var`` (batch_stats) → ``weight``/``bias``/``running_mean``/
+``running_var``.  The variables arrive as nested dicts of numpy arrays, so
+this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import torch
 def _conv(w) -> np.ndarray:
     """flax Conv [kh, kw, I, O] → torch Conv2d [O, I, kh, kw]."""
     return np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1))
+
+
+def _linear(w) -> np.ndarray:
+    """flax Dense [in, out] → torch Linear [out, in]."""
+    return np.ascontiguousarray(np.asarray(w).transpose(1, 0))
 
 
 def _bn(state: Dict[str, np.ndarray], key: str, params: Dict, stats: Dict) -> None:
@@ -52,7 +59,43 @@ def _resnet12bdc(params, stats, state) -> None:
     state["bdc_pool.temperature"] = np.asarray(head_p["log_temperature"])
 
 
-_CONVERTERS = {"resnet12Bdc": _resnet12bdc}
+def _convnf(params, stats, state) -> None:
+    """Conv64F / Conv32F / Conv64F_MCL: ``layer{i}`` = ConvBnAct
+    (``Conv_0``, with a bias unless bias-free, and ``BatchNorm_0``) →
+    ``layer{i}.0`` / ``layer{i}.1``; Conv64F's logits head → ``logits.1``
+    (BN1d) and ``logits.2`` (Linear)."""
+    for i in range(1, 5):
+        seq = f"layer{i}"
+        state[f"{seq}.0.weight"] = _conv(params[seq]["Conv_0"]["kernel"])
+        if "bias" in params[seq]["Conv_0"]:
+            state[f"{seq}.0.bias"] = np.asarray(params[seq]["Conv_0"]["bias"])
+        _bn(state, f"{seq}.1", params[seq]["BatchNorm_0"]["BatchNorm_0"],
+            stats[seq]["BatchNorm_0"]["BatchNorm_0"])
+    if "logits_dense" in params:
+        _bn(state, "logits.1", params["logits_bn"]["BatchNorm_0"],
+            stats["logits_bn"]["BatchNorm_0"])
+        state["logits.2.weight"] = _linear(params["logits_dense"]["kernel"])
+        state["logits.2.bias"] = np.asarray(params["logits_dense"]["bias"])
+
+
+def _r2d2emb(params, stats, state) -> None:
+    """R2D2Embedding: flax ``block{i}_conv`` / ``block{i}_bn`` → reference
+    ``block{i}.0`` / ``block{i}.1``."""
+    for i in range(1, 5):
+        blk = f"block{i}"
+        state[f"{blk}.0.weight"] = _conv(params[f"{blk}_conv"]["kernel"])
+        state[f"{blk}.0.bias"] = np.asarray(params[f"{blk}_conv"]["bias"])
+        _bn(state, f"{blk}.1", params[f"{blk}_bn"]["BatchNorm_0"],
+            stats[f"{blk}_bn"]["BatchNorm_0"])
+
+
+_CONVERTERS = {
+    "Conv64F": _convnf,
+    "Conv32F": _convnf,
+    "Conv64F_MCL": _convnf,  # the same layer{i} = (bias-free conv, BN) layout
+    "R2D2Embedding": _r2d2emb,
+    "resnet12Bdc": _resnet12bdc,
+}
 
 
 def state_dict_from_jax(

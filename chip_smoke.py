@@ -11,8 +11,9 @@ Phases (any failure ends the script with a non-zero exit code):
    ``nvcc`` per source, started together); a kernel that spills registers
    fails the run;
 3. each kernel against its plain PyTorch version on the card, in float32
-   with TF32 off, at the main-path shape and at odd shapes (every padded
-   width of the kernel on both of its load paths), and on three
+   with TF32 off, at the main-path shape, at the shapes phase 11's TTA cell
+   gives it (its episode batch and its augmented segments), at odd shapes
+   (every padded width of the kernel on both of its load paths), and on three
    adversarial inputs (post-ReLU, near-duplicate rows, scaled by 30) where
    both are also held against a float64 evaluation (max abs error limit
    5e-4 each) beside a plain emulation of the kernel's arithmetic, with the
@@ -46,7 +47,23 @@ Phases (any failure ends the script with a non-zero exit code):
    scheduler state.  Launch counts are reset just before and read just
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
-   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line.
+   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
+   (printed after phases 9-11, which run before it);
+9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
+   (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
+   episodes per step, bf16) through ``Test``, with eps/s per epoch and the
+   peak memory; the BDC kernels' launch counts, reset just before, must read
+   0; then one float32 batch: segment logits on the card against the CPU;
+10. ProtoNet training: ``train.slice_config(classifier="ProtoNet")`` through
+   ``Trainer`` (2 epochs of 40 episodes), then a third epoch through the
+   resume entry point, which must start at epoch 2; finite losses, train
+   eps/s, ms a step, peak memory, BDC kernel launches 0;
+11. DeepBDC eval with the energy-OOD TTA re-vote
+   (``enhance_classification_via_energy``): the eval cell at 8 episodes a
+   step, 32 test episodes, one epoch; the flagged clips and the augmented
+   segments of each step, read from the step and held against the cell's
+   (80 and 4800), TTA eps/s, the peak memory and the ``bdc_pool``
+   launches; accuracies finite and within [0, 100].
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -224,6 +241,7 @@ def main() -> int:
         bdc_from_gram, bdc_pool, bdc_pool_triu_vjp, bdc_pool_triu_vjp_cluster,
         gram_split_tf32, triuvec)
     from audio_fewshot_tpu_torch import run_trainer_resume, train
+    from audio_fewshot_tpu_torch.registry import CLASSIFIERS
     from audio_fewshot_tpu_torch.utils.checkpoint import LAST, load_last, save_model_best
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
@@ -266,6 +284,20 @@ def main() -> int:
     b_main = probe.support.shape[0] * (probe.support.shape[1] + probe.query.shape[1])
     m_main = (128 // 8) * (157 // 8)  # stage-4 map of a [1, 128, 157] segment
     del probe
+    # phase 11's cell, and the batches it gives the kernel: its calibration
+    # and test steps, and the augmented segments of its flagged clips
+    ecfg = slice_config(test_episode=32, test_epoch=1, test_episode_size=8)
+    ecfg.update(enhance_classification_via_energy=True, num_augmentations=10,
+                tta_segments_per_clip=6)
+    b_tta = set()
+    for split in ("val", "test"):
+        probe = next(iter(get_dataloader(ecfg, split)[0].epoch(0)))
+        b_tta.add(probe.support.shape[0] * (probe.support.shape[1] + probe.query.shape[1]))
+    tta_flagged = max(1, int(CLASSIFIERS.get("DeepBDC").ood_fraction
+                             * math.prod(probe.query_target.shape)))
+    tta_cap = min(ecfg["tta_segments_per_clip"], probe.query.shape[1])
+    tta_augmented = tta_flagged * tta_cap * ecfg["num_augmentations"]
+    del probe
     gen = torch.Generator(device="cuda").manual_seed(0)
     log_t = torch.full((1, 1), math.log(1.0 / (2.0 * m_main)), device="cuda")
     max_err = 0.0
@@ -275,7 +307,8 @@ def main() -> int:
     # loads, the others its tensor-map loads; each path runs at every padded
     # d = 16, 32, ..., 128
     for b, d, m, shift in [
-            (1200, 64, m_main, 0), (b_main, 64, m_main, 0), (2, 16, 45, 0),
+            (1200, 64, m_main, 0), (b_main, 64, m_main, 0),
+            *[(b, 64, m_main, 0) for b in sorted(b_tta | {tta_augmented})], (2, 16, 45, 0),
             (3, 100, 77, 0), (5, 128, 33, 0), (3, 128, 40, 0), (2, 100, 76, 0),
             (2, 96, 300, 0), (2, 80, 64, 0), (3, 48, 8, 0), (4, 32, 12, 0),
             (2, 16, 8, 0), (2, 64, m_main, 1), (2, 32, 13, 0), (2, 48, 9, 0),
@@ -294,7 +327,7 @@ def main() -> int:
             raise AssertionError(f"bdc_pool kernel disagrees with plain at {(b, d, m)}")
         max_err = max(max_err, err_tri, err_full)
         del tri, full, ref
-        if d == 64 and b >= 1200:
+        if d == 64 and b in (1200, b_main):
             # enough buffers that together they exceed the L2 cache twice over
             n_buf = max(1, math.ceil(2 * L2_BYTES / (4 * x.numel())))
             xs = [x] + [torch.randn((b, d, m), device="cuda", generator=gen)
@@ -550,6 +583,154 @@ def main() -> int:
         raise AssertionError(f"bdc_pool_backward launched {train_backward} times for "
                              f"{steps} train steps (bdc_pool {train_launches})")
     del trainer, resumed
+    torch.cuda.empty_cache()
+    print(flush=True)
+
+    # -- 9. ProtoNet eval -------------------------------------------------------
+    pcfg = slice_config(classifier="ProtoNet")
+    with tempfile.TemporaryDirectory() as result_path:
+        init_seed(int(pcfg["seed"]))
+        save_model_best(result_path, build_method(pcfg))  # random weights from the seed
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        t0 = time.time()
+        test = Test(0, pcfg, result_path, device="cuda")
+        acc, ci = test.test_loop()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        proto_launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[proto-eval] proto_5shot_iid_seed0 at full width (Conv64F, 64 -> 1600 head), bf16, "
+          f"{pcfg['test_episode_size']} episodes a step: accuracy {acc:.3f} ± {ci:.3f}, "
+          f"{wall:.1f} s wall (setup + warm-up + {pcfg['test_epoch']} epochs)")
+    print(f"[proto-eval] eps/s per epoch {[round(r, 2) for r in test.epoch_eps]}, peak memory "
+          f"{peak_gib:.2f} GiB; launches bdc_pool {proto_launches[0]}, bdc_pool_backward "
+          f"{proto_launches[1]} (expected 0)")
+    if not math.isfinite(acc) or any(proto_launches):
+        raise AssertionError(f"ProtoNet eval: accuracy {acc}, BDC launches {proto_launches}")
+    del test
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pcfg32 = slice_config(classifier="ProtoNet", precision="fp32")
+    init_seed(int(pcfg32["seed"]))
+    method_cpu = build_method(pcfg32).eval()
+    method_gpu = copy.deepcopy(method_cpu).cuda()
+    full_batch = next(iter(get_dataloader(pcfg32, "test")[0].epoch(0)))
+    batch = EpisodeBatch(
+        support=full_batch.support[:1], query=full_batch.query[:1, :g],
+        query_clip=full_batch.query_clip[:1, :g], query_mask=full_batch.query_mask[:1, :g],
+        support_target=full_batch.support_target[:1],
+        query_target=full_batch.query_target[:1],
+    )
+    with torch.no_grad():
+        on_gpu = method_gpu(batch.to("cuda"), eval_setting(pcfg32)).cpu()
+        on_cpu = method_cpu(batch.to("cpu"), eval_setting(pcfg32))
+    rel = ((on_gpu - on_cpu).abs().max() / on_cpu.abs().max()).item()
+    print(f"[proto-eval] fp32 segment logits {tuple(on_gpu.shape)}: card vs CPU "
+          f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
+          f"{(on_gpu.argmax(-1) == on_cpu.argmax(-1)).float().mean().item():.4f}")
+    if not (torch.isfinite(on_gpu).all() and rel <= LOGIT_REL_LIMIT):
+        raise AssertionError("float32 ProtoNet card logits disagree with the CPU")
+    del method_cpu, method_gpu, full_batch, batch
+    print(flush=True)
+
+    # -- 10. ProtoNet training --------------------------------------------------
+    with tempfile.TemporaryDirectory() as result_root:
+        tcfg = train.slice_config(result_root, classifier="ProtoNet")
+        print("[proto-train] proto_5shot_iid_seed0 at full width, bf16, augment on; cut: "
+              f"epoch 30 -> {tcfg['epoch']}, train_episode 1000 -> {tcfg['train_episode']}, "
+              f"val/test episodes 600 -> {tcfg['test_episode']}, synthetic root; then one "
+              "more epoch through the resume entry point")
+        torch.backends.cudnn.allow_tf32 = True  # the bf16 run's own defaults
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        t0 = time.time()
+        trainer = train.Trainer(0, tcfg, device="cuda")
+        trainer.train_loop()
+        resumed = run_trainer_resume.build_trainer(
+            [trainer.result_dir, "--device", "cuda", "--epoch", str(tcfg["epoch"] + 1)])
+        if resumed.start_epoch != tcfg["epoch"]:
+            raise AssertionError(f"ProtoNet resumed at epoch {resumed.start_epoch}, "
+                                 f"not {tcfg['epoch']}")
+        resumed.train_loop()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        proto_launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    history = trainer.history + resumed.history
+    for r in history:
+        print(f"[proto-train] epoch {r['epoch']}: {r['train_eps']:.2f} train eps/s, step "
+              f"{r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+              f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f} ± {r['val_ci']:.3f}, "
+              f"test acc {r['test_acc']:.3f} ± {r['test_ci']:.3f}")
+    steps = sum(len(r["train_losses"]) for r in history)
+    print(f"[proto-train] {steps} train steps of {TRAIN_SHAPE[0]} segments in {wall:.1f} s wall "
+          f"(setup, val/test, checkpoints, resume included); peak memory {peak_gib:.2f} GiB; "
+          f"launches bdc_pool {proto_launches[0]}, bdc_pool_backward {proto_launches[1]} "
+          f"(expected 0); resumed at epoch {resumed.start_epoch}")
+    values = [v for r in history for v in r["train_losses"]] + [
+        r[k] for r in history for k in ("val_acc", "test_acc")]
+    if not all(math.isfinite(v) for v in values) or any(proto_launches):
+        raise AssertionError(f"ProtoNet training: non-finite loss or accuracy, or BDC "
+                             f"launches {proto_launches}")
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    print(flush=True)
+
+    # -- 11. DeepBDC eval with the energy-OOD TTA re-vote ------------------------
+    with tempfile.TemporaryDirectory() as result_path:
+        init_seed(int(ecfg["seed"]))
+        save_model_best(result_path, build_method(ecfg))  # random weights from the seed
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        t0 = time.time()
+        test = Test(0, ecfg, result_path, device="cuda")
+        # what each TTA step did: its flagged clips (``ood_topk``'s output)
+        # and the augmented segments it embedded (``embed_segments``' input)
+        observed = []
+        ood_topk, embed_segments = test.method.ood_topk, test.method.embed_segments
+
+        def topk_spy(uncertains):
+            top_idx = ood_topk(uncertains)
+            observed.append([top_idx.shape[0], None])
+            return top_idx
+
+        def embed_spy(segments):
+            observed[-1][1] = segments.shape[0]
+            return embed_segments(segments)
+
+        test.method.ood_topk, test.method.embed_segments = topk_spy, embed_spy
+        acc, ci = test.test_loop()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tta_launches = bdc_cuda.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = test.test_loader[0]
+    # the val calibration steps, then the warm-up and each test step: the
+    # episode batch and the augmented segments are two backbone calls
+    expected = len(test.val_loader[0]) + 2 * (1 + len(per_step))
+    print(f"[tta] deepbdc_5shot_iid_seed0 eval with enhance_classification_via_energy, bf16, "
+          f"{ecfg['test_episode_size']} episodes a step, {ecfg['test_episode']} test episodes: "
+          f"accuracy {acc:.3f} ± {ci:.3f}, {wall:.1f} s wall (setup + calibration + warm-up + "
+          "1 epoch)")
+    print(f"[tta] read from each of the {len(observed)} TTA steps (warm-up included): flagged "
+          f"clips {sorted({k for k, _ in observed})}, augmented segments "
+          f"{sorted({n for _, n in observed})} (expected {tta_flagged} and {tta_augmented}: "
+          f"{tta_flagged} clips x {tta_cap} segments x {ecfg['num_augmentations']} copies); "
+          f"TTA eps/s {[round(r, 2) for r in test.epoch_eps]}; peak memory {peak_gib:.2f} GiB")
+    print(f"[tta] bdc_pool launches {tta_launches} (expected {expected}: calibration steps, "
+          "then two backbone calls a TTA step)")
+    if len(observed) != 1 + len(per_step) or any(
+            o != [tta_flagged, tta_augmented] for o in observed):
+        raise AssertionError(f"TTA steps flagged and augmented {observed}, expected "
+                             f"{1 + len(per_step)} x {[tta_flagged, tta_augmented]}")
+    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0 and math.isfinite(ci)):
+        raise AssertionError(f"TTA eval: accuracy {acc} ± {ci}")
+    if tta_launches != expected:
+        raise AssertionError(f"bdc_pool launched {tta_launches} times in the TTA phase, "
+                             f"expected {expected}")
+    del test
     torch.cuda.empty_cache()
     print(flush=True)
 

@@ -204,6 +204,11 @@ def test_port_imports_nothing_of_jax():
                 if name.split(".")[0] in banned:
                     offenders.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert len(_port_files()) > 20
+    scanned = {os.path.relpath(p, os.path.join(REPO, "audio_fewshot_tpu_torch")) for p in _port_files()}
+    assert {"models/backbones/conv_four.py", "models/backbones/layers.py", "models/init.py",
+            "models/heads/proto_net.py", "models/__init__.py", "utils/aggregate.py",
+            "utils/convert.py", "ops/audio_augmentations.py", "eval.py", "train.py",
+            "profile_eval.py", "profile_train.py"} <= scanned
     assert not offenders, offenders
 
 
@@ -251,9 +256,33 @@ def test_chip_cell_is_the_full_width_config():
     assert cfg["precision"] == "fp32" and cfg["classifier"]["name"] == "DeepBDC"
 
 
-def test_tta_config_raises_instead_of_skipping():
-    with pytest.raises(NotImplementedError, match="TTA"):
-        Test(0, slice_config(enhance_classification_via_energy=True), device="cpu")
+def test_tta_config_raises_instead_of_skipping(monkeypatch, tmp_path):
+    """A TTA config runs the energy-OOD re-vote on every test step (the
+    warm-up and each epoch's), seeded: two runs give the same accuracies.
+    Without the Clean statistics it raises instead of skipping the TTA."""
+    from audio_fewshot_tpu_torch import eval as port_eval
+
+    calls = []
+    inner = port_eval.tta_eval_step
+
+    def counting(*args, **kwargs):
+        calls.append(kwargs["num_augmentations"])
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(port_eval, "tta_eval_step", counting)
+    cfg = slice_config(enhance_classification_via_energy=True, num_augmentations=3,
+                       test_episode=2, test_epoch=1)
+    runs = []
+    for _ in range(2):
+        test = Test(0, cfg, device="cpu")
+        runs.append(test.test_loop())
+    assert calls == [3] * 4  # warm-up + one step, twice
+    assert runs[0] == runs[1] and 0.0 <= runs[0][0] <= 100.0
+    assert test.enhance_via_energy and test.tta_segments_per_clip == 3
+    with pytest.raises(FileNotFoundError, match="Clean normalization stats"):
+        Test(0, slice_config(enhance_classification_via_energy=True,
+                             tta_mean_std_file=str(tmp_path / "absent.npy")),
+             device="cpu").test_loop()
 
 
 def test_jax_checkpoint_is_refused_with_a_pointer_to_the_converter(models, tmp_path):

@@ -221,6 +221,32 @@ def test_tensor_core_product_misses_the_float64_gate():
     assert _rel(tensor_core, truth_x) > 1e-5  # the gate it misses (measured 2.2e-5)
 
 
+@pytest.mark.parametrize("shape", [(3, 64, 304), (3, 16, 45)], ids=lambda s: "x".join(map(str, s)))
+def test_jax_grad_error_on_near_duplicate_rows_beside_the_ports(shape):
+    """Where the two packages' training gradients part: on rows equal to
+    within 1e-4, ``jax.grad`` of the JAX package's ``bdc_pool`` (XLA's
+    autodiff through the gram, its training gradient) is far from float64,
+    as the port's plain version is (the same arithmetic; the CPU path of
+    ``bdc_pool_triu_backward``), while the kernel's arithmetic keeps the
+    1e-5 gate.  Measured x̄ errors, relative to the max abs (jax.grad /
+    plain / kernel): 1.56e-3 / 1.56e-3 / 2.5e-7 at (3, 64, 304), 9.1e-3 /
+    9.1e-3 / 1.0e-7 at (3, 16, 45)."""
+    g = torch.Generator().manual_seed(3)
+    x = _adversarial_bdc_input("near_duplicate_rows", shape, g)
+    d, m = shape[1], shape[2]
+    lt = torch.full((1, 1), float(np.log(1.0 / (2.0 * m))))
+    ct = torch.randn((shape[0], d * (d + 1) // 2), generator=g)
+    truth_x, _ = bdc_pool_triu_vjp(x.double(), lt.double(), ct.double())
+    ref_x = jax.grad(lambda a: jnp.sum(jax_triuvec(jax_bdc_pool(a, lt.numpy()[0, 0])) * ct.numpy()))(
+        jnp.asarray(x.numpy()))
+    jax_err = _rel(np.asarray(ref_x), truth_x)
+    plain_err = _rel(bdc_cuda.bdc_pool_triu_backward(x, lt, ct)[0], truth_x)
+    kernel_err = _rel(bdc_pool_triu_vjp_cluster(x, lt, ct)[0], truth_x)
+    assert kernel_err <= 1e-5
+    assert jax_err > 1e-3 and plain_err > 1e-3  # both far outside the gate
+    assert plain_err == pytest.approx(jax_err, rel=0.05)
+
+
 def test_bdc_backward_wrapper_counts_only_kernel_launches(monkeypatch):
     monkeypatch.setattr(bdc_cuda, "backward_launches", 0)
     x = torch.randn(2, 8, 6)
@@ -599,7 +625,8 @@ def test_train_mode_batchnorm_follows_flax():
 
 NEW_MODULES = ["train.py", "optim.py", "run_trainer.py", "run_trainer_resume.py", "profile_train.py",
                "ops/audio_augmentations.py", "utils/meters.py", "utils/checkpoint.py",
-               "ops/bdc_cuda.py", "data/loader.py"]
+               "ops/bdc_cuda.py", "data/loader.py", "models/backbones/conv_four.py",
+               "models/init.py", "models/heads/proto_net.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
