@@ -29,6 +29,7 @@ from .data.dataset import load_mean_std
 from .episode import EpisodeBatch, materialize_episode_batch
 from .models import build_method, eval_setting
 from .models.base import EpisodeSetting, MethodBase
+from .models.heads.proto_net import apply_bpa
 from .ops.audio_augmentations import batch_augment_spectrogram
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.aggregate import clip_vote_counts
@@ -52,6 +53,20 @@ SLICE_MODELS = {
         "tag": "proto_5shot_iid_seed0",
     },
 }
+# the Conv64F local-descriptor heads: config/<dir>/<dir>_5shot_iid_seed0.yaml,
+# Conv64F with is_flatten and last_pool off (a [64, 4, 5] map of a
+# [1, 128, 157] segment)
+_MAP_BACKBONE = {"name": "Conv64F", "kwargs": {
+    "is_flatten": False, "is_feature": False, "leaky_relu": False, "negative_slope": 0.2,
+    "last_pool": False, "maxpool_last2": True, "num_channels": 1}}
+SLICE_MODELS.update({
+    name: {"classifier": {"name": name, "kwargs": kwargs}, "backbone": _MAP_BACKBONE,
+           "tag": f"{tag}_5shot_iid_seed0"}
+    for name, tag, kwargs in (
+        ("DN4", "dn4", {"n_k": 3}), ("ADM", "adm", {"n_k": 3}), ("ADM_KL", "adm_kl", {"n_k": 3}),
+        ("ConvMNet", "convmnet", None), ("ATLNet", "atlnet", {"feat_dim": 64}),
+        ("MCL", "mcl", {"katz_factor": 0.5, "gamma": 20.0, "gamma2": 10.0}),
+        ("RelationNet", "relationnet", {"feat_dim": 64}))})
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
@@ -62,7 +77,9 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
     (resnet12Bdc, ``reduce_dim`` 64); ``"ProtoNet"``:
     ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F with the 64 → 1600
-    logits head).  Either with its headers, as a dict (no YAML needed), cut
+    logits head); a Conv64F metric head of ``SLICE_MODELS`` (DN4, ADM,
+    ADM_KL, ConvMNet, ATLNet, MCL, RelationNet): its shipped
+    ``*_5shot_iid_seed0.yaml``.  Each with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16
     by default), and a ``synthetic`` root of ``[1, 128, 157]`` segments,
@@ -135,10 +152,20 @@ def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetti
     order, capped at ``tta_segments_per_clip``.  The copies are
     noise-suppressed (``batch_augment_spectrogram``), unless ``augment``
     (called as ``augment(segments, mean, std, num_augmentations, generator)``)
-    makes them: a test can hand in given ones."""
+    makes them: a test can hand in given ones.
+
+    With the method's ``use_bpa`` the support and query are BPA-transformed
+    for the base vote, and each flagged clip's augmented segments are
+    transformed jointly with the raw support (the transformed support is not
+    reused: its width is that of the episode's own set)."""
     if bank is not None:
         batch = materialize_episode_batch(batch, bank)
-    sup_f, qry_f = method.embed(batch)
+    sup_raw, qry_f = method.embed(batch)
+    sup_f = sup_raw
+    use_bpa = getattr(method, "use_bpa", False)
+    if use_bpa:
+        # the base votes score in the space the calibration pass scored in
+        sup_f, qry_f = apply_bpa(sup_raw, qry_f, batch.query_mask)
     seg_logits = method.feature_logits(sup_f, qry_f, setting)
 
     wq = batch.num_query_clips
@@ -153,7 +180,15 @@ def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetti
            if augment is None else augment(flat, tta_mean, tta_std, m, generator))  # [K*S*M, ...]
     aug_f = method.embed_segments(aug).reshape(k, s_cap * m, -1)
     # each flagged clip scores against its own episode's support set
-    aug_logits = method.feature_logits(sup_f[ep_idx], aug_f, setting)
+    if use_bpa:
+        # BPA features live in the affinity space of their own joint set:
+        # each flagged clip's augmented segments are transformed anew beside
+        # the raw support, the empty segment slots kept out of the transport
+        aug_mask = seg_valid.float().repeat_interleave(m, dim=1)  # [K, S*M]
+        sup_t, aug_t = apply_bpa(sup_raw[ep_idx], aug_f, aug_mask)
+        aug_logits = method.feature_logits(sup_t, aug_t, setting)
+    else:
+        aug_logits = method.feature_logits(sup_f[ep_idx], aug_f, setting)
 
     votes = clip_vote_counts(seg_logits, batch.query_clip, batch.query_mask, wq)  # [E, Wq, way]
     way = votes.shape[-1]

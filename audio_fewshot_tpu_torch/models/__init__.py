@@ -51,6 +51,20 @@ def _build_backbone(config: Dict[str, Any], cls_factory) -> torch.nn.Module:
     return factory(**bk_kwargs)
 
 
+def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
+    """``(c, h, w)`` of the backbone's output map for the config's segments.
+    torch infers no shapes: heads that declare ``needs_map_shape`` (ConvMNet's
+    scorer, ATLNet's transform, RelationNet's ``fc1``) get it at
+    construction, where flax sized them at init from a traced map."""
+    from ..data.dataset import segment_shape
+
+    if not hasattr(emb_func, "map_shape"):
+        raise NotImplementedError(
+            f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
+            "states no output map shape yet (the port has it for Conv64F)")
+    return tuple(emb_func.map_shape(segment_shape(config)))
+
+
 def build_method(config: Dict[str, Any]) -> MethodBase:
     """Config → method (an ``nn.Module`` on the CPU; the caller moves it).
 
@@ -70,6 +84,8 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     cls_factory = CLASSIFIERS.get(config["classifier"]["name"])
     cls_kwargs = dict(config["classifier"].get("kwargs") or {})
     cls_kwargs["emb_func"] = _build_backbone(config, cls_factory)
+    if getattr(cls_factory, "needs_map_shape", False):
+        cls_kwargs["map_shape"] = _map_shape(config, cls_kwargs["emb_func"])
     # episode-geometry kwargs, as the reference passes to every classifier
     for key, val in (
         ("way_num", config.get("way_num")),

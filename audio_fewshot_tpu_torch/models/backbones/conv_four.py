@@ -76,6 +76,14 @@ class ConvNF(nn.Module):
         n = 2 + int(self.maxpool_last2) + int(self.last_pool)
         return floor_power(h, 3, n), floor_power(w, 3, n)
 
+    def map_shape(self, spec_shape: Sequence[int]):
+        """``(c, h, w)`` of the map a ``spec_shape`` segment leaves, for heads
+        that size their layers from it (``build_method`` passes it)."""
+        if self.is_flatten:
+            raise ValueError("Conv64F with is_flatten returns flat features, not a map; "
+                             "a local-descriptor head needs is_flatten: false")
+        return (self.layer4[0].out_channels,) + self.pooled_hw(*spec_shape[-2:])
+
     def forward(self, x: torch.Tensor, sample_mask: Optional[torch.Tensor] = None):
         n = x.shape[0]
         h, w = self.pooled_hw(*x.shape[-2:])

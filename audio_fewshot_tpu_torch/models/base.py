@@ -5,7 +5,10 @@ A method is an ``nn.Module`` that owns the backbone as ``emb_func`` (so its
 ``EpisodeBatch`` of tensors to per-segment logits ``[E, G, way]``.  The
 module's mode is the JAX package's ``train`` flag: in train mode ``embed``
 runs the backbone with batch statistics over the whole episode batch, and
-``loss`` returns the training loss with its logits and metrics.
+``loss`` returns the training loss with its logits and metrics.  A head
+with parameters owns them as a submodule of its own beside ``emb_func``
+(under the reference torch name), so ``optim.py`` gives it its own
+parameter group, as the JAX package's ``head`` key does.
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ class LossOutput:
 def masked_cross_entropy(
     seg_logits: torch.Tensor, seg_target: torch.Tensor, mask: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """Mean cross-entropy over the valid query segments."""
-    logp = F.log_softmax(seg_logits.float(), dim=-1)
+    """Mean cross-entropy over the valid query segments, in float32 at least
+    (float64 logits keep float64)."""
+    logp = F.log_softmax(seg_logits.to(torch.promote_types(seg_logits.dtype, torch.float32)),
+                         dim=-1)
     nll = -logp.gather(-1, seg_target.long()[..., None])[..., 0]
     if mask is None:
         return nll.mean()
@@ -58,6 +63,9 @@ def masked_cross_entropy(
 
 class MethodBase(nn.Module):
     model_type = ModelType.ABSTRACT
+    #: whether ``embed`` keeps the backbone's ``[c, h, w]`` maps (local-
+    #: descriptor heads) instead of flattening them
+    needs_feature_map = False
 
     def __init__(self, emb_func: nn.Module, **kwargs):
         # kwargs: the episode geometry every classifier receives (way_num,
@@ -76,13 +84,16 @@ class MethodBase(nn.Module):
     def embed(self, batch: EpisodeBatch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Support and query through ONE backbone call (as the reference runs
         the whole flat batch through ``emb_func``).  Returns
-        (support_feat [E, W*S, D], query_feat [E, G, D])."""
+        (support_feat [E, W*S, D], query_feat [E, G, D]), or with
+        ``needs_feature_map`` ([E, W*S, c, h, w], [E, G, c, h, w])."""
         e = batch.num_episodes
         ws = batch.support.shape[1]
         g = batch.query.shape[1]
         feats = self.emb_func(self._flatten_inputs(batch))
-        feats = feats.reshape(feats.shape[0], -1)
-        return feats[: e * ws].reshape(e, ws, -1), feats[e * ws :].reshape(e, g, -1)
+        if not self.needs_feature_map:
+            feats = feats.reshape(feats.shape[0], -1)
+        tail = feats.shape[1:]
+        return feats[: e * ws].reshape((e, ws) + tail), feats[e * ws :].reshape((e, g) + tail)
 
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
         raise NotImplementedError

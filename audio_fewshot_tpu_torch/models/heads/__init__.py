@@ -1,3 +1,4 @@
 """Method (classifier) registry."""
 
-from . import deepbdc, proto_net  # noqa: F401  (register DeepBDC and ProtoNet)
+# register the classifiers
+from . import atl_net, deepbdc, dn4, local_metrics, mcl, proto_net, relation_net  # noqa: F401

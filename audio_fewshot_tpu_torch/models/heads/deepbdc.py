@@ -9,7 +9,10 @@ machinery (counterpart of ``audio_fewshot_tpu/models/heads/deepbdc.py``).
   pooled 95 % quantile ('overall');
 - the top 20 % most-uncertain query clips are flagged OOD.
 
-- ``loss``: masked per-segment cross-entropy over the same logits.
+- ``loss``: masked per-segment cross-entropy over the same logits;
+- ``use_bpa``: the BPA transform over each episode's features first
+  (``proto_net.episode_features``), in ``forward`` (so the calibration
+  pass sees it) and in ``loss``.
 
 ``eval.tta_eval_step`` consumes the flags (the TTA re-vote).
 """
@@ -25,7 +28,7 @@ from ...episode import EpisodeBatch, materialize_episode_batch, segment_targets
 from ...registry import CLASSIFIERS
 from ...utils.aggregate import average_logits, majority_vote
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
-from .proto_net import neg_sq_euclidean, prototypes
+from .proto_net import episode_features, neg_sq_euclidean, prototypes
 
 
 def bdc_proto_logits(query_feat, support_feat, way: int, shot: int) -> torch.Tensor:
@@ -45,19 +48,17 @@ class DeepBDC(MethodBase):
 
     def __init__(self, emb_func, use_bpa: bool = False, **kwargs):
         super().__init__(emb_func, **kwargs)
-        if use_bpa:
-            raise NotImplementedError(
-                "use_bpa (ops/bpa.py) is not ported yet (ROADMAP Queue A item 6)")
+        self.use_bpa = use_bpa
         self.uncertain_global_threshold: Optional[float] = None
         self.uncertains_mean: Optional[float] = None
         self.uncertains_std: Optional[float] = None
 
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
-        sup, qry = self.embed(batch)
+        sup, qry = episode_features(self, batch)
         return bdc_proto_logits(qry, sup, setting.way, setting.shot)
 
     def loss(self, batch: EpisodeBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
-        sup, qry = self.embed(batch)
+        sup, qry = episode_features(self, batch)
         seg_logits = bdc_proto_logits(qry, sup, setting.way, setting.shot)
         loss = masked_cross_entropy(seg_logits, segment_targets(batch), batch.query_mask)
         return loss, LossOutput(seg_logits, self.train_metrics(seg_logits, batch))

@@ -2,15 +2,17 @@
 ``audio_fewshot_tpu/models/heads/proto_net.py``): class-mean prototypes and
 negative squared-euclidean or cosine logits, one batched product over the
 episode axis (the ragged query axis is dense and masked), in float32.
-``use_bpa`` (``ops/bpa.py``) is not ported yet and raises."""
+``use_bpa`` runs the BPA transform (``ops/bpa.py``) over each episode's
+[support ‖ query] features first (``apply_bpa``)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ...episode import EpisodeBatch, segment_targets
+from ...ops.bpa import bpa_transform
 from ...registry import CLASSIFIERS
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
 
@@ -45,23 +47,46 @@ def proto_logits(query_feat: torch.Tensor, support_feat: torch.Tensor, way: int,
     raise ValueError(f"unknown proto mode {mode!r}")
 
 
+def apply_bpa(sup: torch.Tensor, qry: torch.Tensor, query_mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The BPA transform (cosine cost) over each episode's [support ‖ query]
+    set: ``[E, W*S, D]``, ``[E, G, D]`` → ``[E, W*S, n]``, ``[E, G, n]`` with
+    n = W*S + G.  ``query_mask`` keeps padded query segments out of the
+    transport marginals."""
+    ws = sup.shape[1]
+    feats = torch.cat([sup, qry], dim=1)
+    row_mask = None
+    if query_mask is not None:
+        row_mask = torch.cat([torch.ones(sup.shape[:2], dtype=query_mask.dtype,
+                                         device=query_mask.device), query_mask], dim=1)
+    affin = bpa_transform(feats, distance="cosine", row_mask=row_mask)
+    return affin[:, :ws], affin[:, ws:]
+
+
+def episode_features(method: MethodBase, batch: EpisodeBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``method.embed(batch)``, BPA-transformed where the method's
+    ``use_bpa`` is on (ProtoNet's and DeepBDC's ``forward`` and ``loss``)."""
+    sup, qry = method.embed(batch)
+    if method.use_bpa:
+        sup, qry = apply_bpa(sup, qry, batch.query_mask)
+    return sup, qry
+
+
 @CLASSIFIERS.register("ProtoNet")
 class ProtoNet(MethodBase):
     model_type = ModelType.METRIC
 
     def __init__(self, emb_func, mode: str = "euclidean", use_bpa: bool = False, **kwargs):
         super().__init__(emb_func, **kwargs)
-        if use_bpa:
-            raise NotImplementedError(
-                "use_bpa (ops/bpa.py) is not ported yet (ROADMAP Queue A item 6)")
         self.mode = mode
+        self.use_bpa = use_bpa
 
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
-        sup, qry = self.embed(batch)
+        sup, qry = episode_features(self, batch)
         return proto_logits(qry, sup, setting.way, setting.shot, self.mode)
 
     def loss(self, batch: EpisodeBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
-        sup, qry = self.embed(batch)
+        sup, qry = episode_features(self, batch)
         seg_logits = proto_logits(qry, sup, setting.way, setting.shot, self.mode)
         loss = masked_cross_entropy(seg_logits, segment_targets(batch), batch.query_mask)
         return loss, LossOutput(seg_logits, self.train_metrics(seg_logits, batch))

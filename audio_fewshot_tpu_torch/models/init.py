@@ -32,6 +32,14 @@ def _truncated(w: torch.Tensor, variance: float, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator = None) -> None:
+    """flax's ``lecun_normal`` in place: the truncated normal of variance
+    1 / fan_in (heads whose JAX counterparts draw their kernels so)."""
+    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(w)
+    _truncated(w, 1.0 / fan_in, generator)
+
+
+@torch.no_grad()
 def init_weights(model: nn.Module, init_type: str, generator: torch.Generator) -> None:
     """Redraw the weight of every Conv and Linear of ``model`` with the
     named initialiser."""

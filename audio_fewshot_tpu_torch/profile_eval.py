@@ -3,8 +3,9 @@
     python -m audio_fewshot_tpu_torch.profile_eval [--steps 4] [--classifier ProtoNet]
 
 Builds an eval cell of ``eval.slice_config`` (``--classifier DeepBDC``, the
-default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; either at
-[1, 128, 157] segments, 16 episodes per step, bf16) through ``Test``, warms
+default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; a Conv64F
+metric head such as ``MCL`` or ``DN4``; each at [1, 128, 157] segments, 16
+episodes per step, bf16) through ``Test``, warms
 up, then runs ``--steps`` eval steps under ``torch.profiler`` and prints the
 device time by kernel category and the top kernels, the device-busy share
 of the window, and the step time.  Needs a CUDA device.
@@ -32,6 +33,10 @@ CATEGORIES = (
     ("convolution", ("conv", "xmma", "fprop", "implicit", "wgrad", "dgrad", "cudnn")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw")),
     ("max pool", ("max_pool",)),
+    ("linear algebra (LU, solve)", ("getrf", "getrs", "getri", "trsm", "laswp", "magma",
+                                    "cusolver", "lu_")),
+    ("top-k / sort", ("topk", "sort", "radix", "bitonic")),
+    ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("matmul", ("gemm", "cutlass", "cublas")),
     ("gather / copy", ("index", "gather", "copy", "cat")),
     ("reduction", ("reduce",)),

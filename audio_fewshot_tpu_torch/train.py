@@ -41,27 +41,30 @@ from .utils.checkpoint import LAST, SaveType, load_last, load_part, save_model
 from .utils.meters import AverageMeter, TensorboardWriter
 
 
-def slice_config(result_root: str, classifier: str = "DeepBDC") -> Dict[str, Any]:
+def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
+                 train_episode: int = 40, test_episode: int = 32) -> Dict[str, Any]:
     """A full-width training cell that ``chip_smoke.py`` runs on the card.
 
     ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
     (resnet12Bdc, planes 64/160/320/640, ``reduce_dim`` 64);
     ``"ProtoNet"``: ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F
-    with ``is_flatten``: the 64 → 1600 logits head).  Either with its
-    headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
+    with ``is_flatten``: the 64 → 1600 logits head); a Conv64F metric head of
+    ``eval.SLICE_MODELS``: its shipped ``*_5shot_iid_seed0.yaml``.  Each with
+    its headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
     ``[1, 128, 157]`` segments, one episode a step (75 segments), bf16
     backbone and fp32 head, Adam at lr 0.005 with CosineAnnealingLR(T_max
     100), ``augment: true`` with the Clean mean/std.  Cut to size: ``epoch``
     30 → 2, ``train_episode`` 1000 → 40, ``test_episode`` (val and test) 600
-    → 32, and a ``synthetic`` root, since no dataset ships with the
-    repository."""
+    → 32 by default, and a ``synthetic`` root, since no dataset ships with
+    the repository."""
     return Config(None, {
         **copy.deepcopy(SLICE_MODELS[classifier]),
         "modality": "audio", "way_num": 5, "shot_num": 5, "query_num": 10,
         "seed": 0, "ood": False, "data_root": "synthetic", "spec_shape": [1, 128, 157],
         "mean_std_file": "./Auxiliary/Clean_Mean_Std.npy",
         "class_per_split": "./Auxiliary/KOS_paper_splits.npy",
-        "augment": True, "epoch": 2, "train_episode": 40, "test_episode": 32,
+        "augment": True, "epoch": epoch, "train_episode": train_episode,
+        "test_episode": test_episode,
         "precision": "bf16", "result_root": result_root,
         "optimizer": {"name": "Adam", "kwargs": {"lr": 0.005}, "other": None},
         "lr_scheduler": {"name": "CosineAnnealingLR", "kwargs": {"T_max": 100, "eta_min": 0}},

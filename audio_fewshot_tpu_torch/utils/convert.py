@@ -6,13 +6,16 @@ the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` (which have
 no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
 [in, out] → Linear [out, in]; BatchNorm ``scale``/``bias`` (params) and
 ``mean``/``var`` (batch_stats) → ``weight``/``bias``/``running_mean``/
-``running_var``.  The variables arrive as nested dicts of numpy arrays, so
-this module needs no JAX.
+``running_var``.  The heads with parameters (ADM, ConvMNet, ATLNet,
+RelationNet) map onto the reference torch names, the port's copy of
+``invert_{adm,convmnet,atlnet,relationnet}_head_params`` in
+``tools/cross_framework_parity.py``.  The variables arrive as nested dicts
+of numpy arrays, so this module needs no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -98,14 +101,89 @@ _CONVERTERS = {
 }
 
 
+def _head_bn(state, key: str, params: Dict, stats: Dict) -> None:
+    """A head's BN: the running statistics default to 0 and 1 where the
+    variables hold none.  No ``num_batches_tracked`` (the reference
+    inverters give none; ``load_state_dict`` fills it)."""
+    scale = np.asarray(params["scale"])
+    state[key + ".weight"] = scale
+    state[key + ".bias"] = np.asarray(params["bias"])
+    state[key + ".running_mean"] = np.asarray(stats.get("mean", np.zeros_like(scale)))
+    state[key + ".running_var"] = np.asarray(stats.get("var", np.ones_like(scale)))
+
+
+def _adm_head(head, stats, state) -> None:
+    """ADM's mixer: ``norm`` → ``adm_layer.normLayer`` (BatchNorm1d(2·way)),
+    ``mix`` [2] → ``adm_layer.fcLayer.weight`` [1, 1, 2]."""
+    _head_bn(state, "adm_layer.normLayer", head["norm"], stats.get("norm", {}))
+    state["adm_layer.fcLayer.weight"] = np.asarray(head["mix"]).reshape(1, 1, 2)
+
+
+def _convmnet_head(head, stats, state) -> None:
+    """ConvMNet's scorer: ``kernel`` [hw, 1] / ``bias`` →
+    ``convm_layer.conv1dLayer.2`` (Conv1d(1, 1, hw))."""
+    state["convm_layer.conv1dLayer.2.weight"] = np.asarray(head["kernel"])[:, 0].reshape(1, 1, -1)
+    state["convm_layer.conv1dLayer.2.bias"] = np.asarray(head["bias"])
+
+
+def _atlnet_head(head, stats, state) -> None:
+    """ATLNet: ``w_conv`` / ``w_bn`` → ``atlLayer.W.0`` / ``.1``; ``psi1`` /
+    ``psi2`` → ``atlLayer.attenLayer.f_psi.0`` / ``.2``."""
+    state["atlLayer.W.0.weight"] = _conv(head["w_conv"]["kernel"])
+    _head_bn(state, "atlLayer.W.1", head["w_bn"]["BatchNorm_0"],
+             stats.get("w_bn", {}).get("BatchNorm_0", {}))
+    for ours, theirs in (("psi1", "f_psi.0"), ("psi2", "f_psi.2")):
+        state[f"atlLayer.attenLayer.{theirs}.weight"] = _linear(head[ours]["kernel"])
+        state[f"atlLayer.attenLayer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
+
+
+def _relationnet_head(head, stats, state) -> None:
+    """RelationNet: ``conv1`` / ``bn1`` / ``conv2`` / ``bn2`` →
+    ``relation_layer.layers.{0,1,4,5}``; ``fc1`` / ``fc2`` →
+    ``relation_layer.fc.{0,2}``."""
+    for ours, theirs in (("conv1", "layers.0"), ("conv2", "layers.4")):
+        state[f"relation_layer.{theirs}.weight"] = _conv(head[ours]["kernel"])
+        state[f"relation_layer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
+    for ours, theirs in (("bn1", "layers.1"), ("bn2", "layers.5")):
+        _head_bn(state, f"relation_layer.{theirs}", head[ours]["BatchNorm_0"],
+                 stats.get(ours, {}).get("BatchNorm_0", {}))
+    for ours, theirs in (("fc1", "fc.0"), ("fc2", "fc.2")):
+        state[f"relation_layer.{theirs}.weight"] = _linear(head[ours]["kernel"])
+        state[f"relation_layer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
+
+
+_HEAD_CONVERTERS = {
+    "ADM": _adm_head,
+    "ConvMNet": _convmnet_head,
+    "ATLNet": _atlnet_head,
+    "RelationNet": _relationnet_head,
+}
+
+
+def head_state_dict_from_jax(variables: Dict[str, Any],
+                             classifier: str) -> Dict[str, np.ndarray]:
+    """The head's entries of a method's state dict (method-level keys, the
+    reference torch names) from the JAX package's ``params["head"]`` and
+    ``batch_stats["head"]``; empty for a head without parameters."""
+    if classifier not in _HEAD_CONVERTERS:
+        return {}
+    state: Dict[str, np.ndarray] = {}
+    _HEAD_CONVERTERS[classifier](variables["params"]["head"],
+                                 variables.get("batch_stats", {}).get("head", {}), state)
+    return state
+
+
 def state_dict_from_jax(
-    variables: Dict[str, Any], backbone_name: str, prefix: str = ""
+    variables: Dict[str, Any], backbone_name: str, prefix: str = "",
+    classifier: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Backbone state dict from the JAX package's variable tree.
 
     ``variables``: ``{"params": {"emb_func": ...}, "batch_stats": {...}}`` or
     an already-sliced backbone tree, as nested dicts of numpy arrays.  Keys
-    get ``prefix`` (``"emb_func."`` for a whole method)."""
+    get ``prefix`` (``"emb_func."`` for a whole method).  ``classifier``
+    (with a whole method's variables): also its head's weights, under the
+    method-level keys of ``head_state_dict_from_jax``."""
     if backbone_name not in _CONVERTERS:
         raise KeyError(
             f"no converter for backbone {backbone_name!r}; supported: {sorted(_CONVERTERS)}"
@@ -117,4 +195,7 @@ def state_dict_from_jax(
         stats = stats.get("emb_func", {})
     state: Dict[str, np.ndarray] = {}
     _CONVERTERS[backbone_name](params, stats, state)
-    return {prefix + k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+    state = {prefix + k: v for k, v in state.items()}
+    if classifier is not None:
+        state.update(head_state_dict_from_jax(variables, classifier))
+    return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}

@@ -48,7 +48,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-11, which run before it);
+   (printed after phases 9-14, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -64,6 +64,24 @@ Phases (any failure ends the script with a non-zero exit code):
    segments of each step, read from the step and held against the cell's
    (80 and 4800), TTA eps/s, the peak memory and the ``bdc_pool``
    launches; accuracies finite and within [0, 100].
+
+12. the Conv64F local-descriptor heads' evaluation: DN4, ADM, ADM_KL,
+   ConvMNet, ATLNet and MCL, each its shipped ``*_5shot_iid_seed0`` at full
+   width (``eval.slice_config(classifier=...)``: Conv64F's [64, 4, 5] map,
+   16 episodes a step, bf16 backbone, fp32 head) through ``Test``, cut to 32
+   test episodes and one epoch: eval eps/s, ms a step, peak memory, BDC
+   launches (must be 0), and one float32 episode's logits on the card
+   against the CPU;
+13. their training: each through ``Trainer`` for one epoch of 20 episodes
+   with 16 val and test episodes (finite losses, train eps/s, ms a step, peak
+   memory, BDC launches 0); then RelationNet: its shipped config must raise
+   its error on the card, and at ``maxpool_last2: false`` (NOT the shipped
+   geometry) one float32 episode card vs CPU and one such training epoch;
+14. BPA: ProtoNet with ``use_bpa`` at full width through ``Test`` (transport
+   over [support ‖ query] sets of 25 + the query bucket, 281 rows), one
+   float32 episode card vs CPU; DeepBDC with ``use_bpa`` and the TTA
+   re-vote at phase 11's cut, whose ``bdc_pool`` launches must be phase
+   11's count.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -97,6 +115,13 @@ TRAIN_SHAPE = (75, 64, 304)
 # (cuDNN vs oneDNN) through 13 layers, and -|q-p|^2 = 2qp - |q|^2 - |p|^2
 # cancels, so the limit is relative to the logits' scale
 LOGIT_REL_LIMIT = 1e-3
+# the Conv64F local-descriptor heads of phases 12 and 13 (RelationNet, which
+# fails at the shipped geometry, is run apart)
+# the device of every phase (the script fails without a CUDA device)
+DEVICE = "cuda"
+METRIC_HEADS = ("DN4", "ADM", "ADM_KL", "ConvMNet", "ATLNet", "MCL")
+# phase 13's cut of a training cell: 1 epoch of 20 episodes, 16 val and test
+HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
 # Recorded, not measured by this script: the kernel's time before its redesign
 # for Hopper, at the main-path shape (4496, 64, 304) on an NVIDIA H100 80GB
 # HBM3 at 700 W.  Printed as context only, never in the `kernels` line.
@@ -224,6 +249,234 @@ def bdc_backward_bound_ms(b: int, d: int, m: int, peaks) -> tuple:
 def rel_err(ours, ref) -> float:
     """max |ours − ref| / max |ref|."""
     return ((ours.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+def run_test(cfg):
+    """``Test.test_loop`` on random weights from the config's seed: eval eps/s
+    of its (one) test epoch, ms a step, peak GiB, accuracy and the BDC
+    kernels' launches (counts reset just before)."""
+    import torch
+
+    from audio_fewshot_tpu_torch.eval import Test
+    from audio_fewshot_tpu_torch.models import build_method
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+    from audio_fewshot_tpu_torch.utils.checkpoint import save_model_best
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    with tempfile.TemporaryDirectory() as result_path:
+        init_seed(int(cfg["seed"]))
+        save_model_best(result_path, build_method(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        test = Test(0, cfg, result_path, device=DEVICE)
+        acc, _ = test.test_loop()
+        torch.cuda.synchronize()
+        launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+    eps = test.epoch_eps[0]
+    return (eps, 1e3 * cfg["test_episode_size"] / eps,
+            torch.cuda.max_memory_allocated() / 2 ** 30, acc, launches)
+
+
+def run_trainer(cfg):
+    """``Trainer.train_loop``: its history (with each epoch's episode count),
+    peak GiB and the BDC kernels' launches (counts reset just before).
+    Fails on a non-finite loss or accuracy."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    bdc_cuda.launches = bdc_cuda.backward_launches = 0
+    trainer = train.Trainer(0, cfg, device=DEVICE)
+    trainer.train_loop()
+    torch.cuda.synchronize()
+    launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+    rows = [dict(r, train_eps_count=len(r["train_losses"])) for r in trainer.history]
+    values = [v for r in rows for v in r["train_losses"]] + [
+        r[k] for r in rows for k in ("val_acc", "test_acc")]
+    if not rows or not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{cfg['classifier']['name']} training: non-finite loss or accuracy")
+    return rows, torch.cuda.max_memory_allocated() / 2 ** 30, launches
+
+
+def card_vs_cpu(cfg, g):
+    """One float32 episode (episode 0 and its first ``g`` query segments):
+    segment logits of the same model on the card and on the CPU, as
+    max|Δ|/max|logit|, the argmax agreement and the logits' shape."""
+    import torch
+
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.episode import EpisodeBatch
+    from audio_fewshot_tpu_torch.models import build_method, eval_setting
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    init_seed(int(cfg["seed"]))
+    method_cpu = build_method(cfg).eval()
+    method_gpu = copy.deepcopy(method_cpu).to(DEVICE)
+    full = next(iter(get_dataloader(cfg, "test")[0].epoch(0)))
+    batch = EpisodeBatch(
+        support=full.support[:1], query=full.query[:1, :g], query_clip=full.query_clip[:1, :g],
+        query_mask=full.query_mask[:1, :g], support_target=full.support_target[:1],
+        query_target=full.query_target[:1])
+    with torch.no_grad():
+        on_gpu = method_gpu(batch.to(DEVICE), eval_setting(cfg)).cpu()
+        on_cpu = method_cpu(batch.to("cpu"), eval_setting(cfg))
+    if not torch.isfinite(on_gpu).all():
+        raise AssertionError(f"{cfg['classifier']['name']}: non-finite logits on the card")
+    rel = ((on_gpu - on_cpu).abs().max() / on_cpu.abs().max()).item()
+    return rel, (on_gpu.argmax(-1) == on_cpu.argmax(-1)).float().mean().item(), tuple(on_gpu.shape)
+
+
+def metric_and_bpa_phases(ecfg, expected: int, g: int) -> None:
+    """Phases 12-14: the Conv64F metric heads' evaluation and training, and
+    BPA (ProtoNet eval; DeepBDC's TTA re-vote at phase 11's cell ``ecfg``,
+    whose ``bdc_pool`` launches must be phase 11's ``expected``).  ``g``: the
+    query segments of a card-vs-CPU episode."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.eval import Test, slice_config
+    from audio_fewshot_tpu_torch.models import build_method
+    from audio_fewshot_tpu_torch.models.heads import proto_net as proto_module
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+    from audio_fewshot_tpu_torch.utils.checkpoint import save_model_best
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    # -- 12. the Conv64F metric heads: evaluation ----------------------------------
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for head in METRIC_HEADS:
+        hcfg = slice_config(classifier=head, test_episode=32, test_epoch=1)
+        eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
+        print(f"[metric-eval] {hcfg['tag']} at full width (Conv64F [64, 4, 5] map), bf16, "
+              f"{hcfg['test_episode_size']} episodes a step, {hcfg['test_episode']} test episodes: "
+              f"accuracy {acc:.3f}, eval eps/s {eps:.2f}, {ms:.1f} ms a step, peak memory "
+              f"{peak_gib:.2f} GiB, BDC launches {bdc_launches} (expected 0)")
+        if not math.isfinite(acc) or any(bdc_launches):
+            raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {bdc_launches}")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
+        print(f"[metric-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+              f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
+        if not rel <= LOGIT_REL_LIMIT:
+            raise AssertionError(f"float32 {head} card logits disagree with the CPU")
+        torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    print(flush=True)
+
+    # -- 13. the Conv64F metric heads: training ------------------------------------
+    for head in METRIC_HEADS:
+        with tempfile.TemporaryDirectory() as result_root:
+            hcfg = train.slice_config(result_root, classifier=head, **HEAD_TRAIN_CUT)
+            rows, peak_gib, bdc_launches = run_trainer(hcfg)
+        for r in rows:
+            print(f"[metric-train] {hcfg['tag']} at full width, bf16, augment on, epoch "
+                  f"{r['epoch']} of {r['train_eps_count']} episodes: {r['train_eps']:.2f} train "
+                  f"eps/s, step {r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+                  f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f}, test acc "
+                  f"{r['test_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches "
+                  f"{bdc_launches} (expected 0)")
+        if any(bdc_launches):
+            raise AssertionError(f"{head} training: BDC launches {bdc_launches}")
+    torch.cuda.empty_cache()
+    # RelationNet: its shipped geometry fails (as in the JAX package); the
+    # way out its error names, maxpool_last2: false, is run as such
+    try:
+        Test(0, slice_config(classifier="RelationNet"), None, device=DEVICE)
+    except ValueError as err:
+        print(f"[relationnet] the shipped relationnet_5shot_iid_seed0 raises on the card, as "
+              f"intended: {err}")
+    else:
+        raise AssertionError("RelationNet built at the shipped geometry")
+    rcfg32 = slice_config(classifier="RelationNet", precision="fp32")
+    rcfg32["backbone"]["kwargs"]["maxpool_last2"] = False
+    torch.backends.cudnn.allow_tf32 = False
+    rel, agree, shape = card_vs_cpu(rcfg32, g)
+    print(f"[relationnet] NOT the shipped geometry (maxpool_last2: false, a [64, 14, 17] map): "
+          f"fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| {rel:.3e} (limit "
+          f"{LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError("float32 RelationNet card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as result_root:
+        hcfg = train.slice_config(result_root, classifier="RelationNet", **HEAD_TRAIN_CUT)
+        hcfg["backbone"]["kwargs"]["maxpool_last2"] = False
+        rows, peak_gib, bdc_launches = run_trainer(hcfg)
+    for r in rows:
+        print(f"[relationnet] NOT the shipped geometry (maxpool_last2: false), bf16, epoch "
+              f"{r['epoch']} of {r['train_eps_count']} episodes: {r['train_eps']:.2f} train eps/s, "
+              f"step {r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+              f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f}, test acc "
+              f"{r['test_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches {bdc_launches}")
+    if any(bdc_launches):
+        raise AssertionError(f"RelationNet training: BDC launches {bdc_launches}")
+    torch.cuda.empty_cache()
+    print(flush=True)
+
+    # -- 14. BPA: ProtoNet eval, and DeepBDC's TTA re-vote -------------------------
+    bcfg = slice_config(classifier="ProtoNet", test_episode=32, test_epoch=1)
+    bcfg["classifier"]["kwargs"] = {"use_bpa": True}
+    rows_seen = set()
+    apply_bpa = proto_module.apply_bpa
+
+    def bpa_spy(sup, qry, query_mask=None):
+        rows_seen.add(sup.shape[1] + qry.shape[1])
+        return apply_bpa(sup, qry, query_mask)
+
+    proto_module.apply_bpa = bpa_spy
+    try:
+        eps, ms, peak_gib, acc, bdc_launches = run_test(bcfg)
+    finally:
+        proto_module.apply_bpa = apply_bpa
+    n_rows = {b.support.shape[1] + b.query.shape[1]
+              for b in get_dataloader(bcfg, "test")[0].epoch(0)}
+    print(f"[bpa] proto_5shot_iid_seed0 with use_bpa at full width, bf16, "
+          f"{bcfg['test_episode_size']} episodes a step: accuracy {acc:.3f}, eval eps/s "
+          f"{eps:.2f}, {ms:.1f} ms a step, peak memory {peak_gib:.2f} GiB; transport over "
+          f"{sorted(rows_seen)}-row sets (expected {sorted(n_rows)}: 25 support + the query "
+          "bucket of each step); "
+          f"BDC launches {bdc_launches} (expected 0)")
+    if rows_seen != n_rows or not math.isfinite(acc) or any(bdc_launches):
+        raise AssertionError(f"ProtoNet BPA eval: rows {rows_seen}, accuracy {acc}, "
+                             f"BDC launches {bdc_launches}")
+    torch.backends.cudnn.allow_tf32 = False
+    bcfg32 = slice_config(classifier="ProtoNet", precision="fp32")
+    bcfg32["classifier"]["kwargs"] = {"use_bpa": True}
+    rel, agree, shape = card_vs_cpu(bcfg32, g)
+    print(f"[bpa] ProtoNet with use_bpa fp32 segment logits {shape}: card vs CPU "
+          f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError("float32 ProtoNet BPA card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    bpa_tta = copy.deepcopy(ecfg)
+    bpa_tta["classifier"]["kwargs"] = {"use_bpa": True}
+    with tempfile.TemporaryDirectory() as result_path:
+        init_seed(int(bpa_tta["seed"]))
+        save_model_best(result_path, build_method(bpa_tta))
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        t0 = time.time()
+        test = Test(0, bpa_tta, result_path, device=DEVICE)
+        acc, ci = test.test_loop()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        bpa_launches = bdc_cuda.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[bpa] deepbdc_5shot_iid_seed0 with use_bpa and the TTA re-vote, phase 11's cut: "
+          f"accuracy {acc:.3f} ± {ci:.3f}, threshold {test.method.uncertain_global_threshold}, "
+          f"TTA eps/s {[round(r, 2) for r in test.epoch_eps]}, "
+          f"{1e3 * bpa_tta['test_episode_size'] / test.epoch_eps[0]:.1f} ms a step, peak memory "
+          f"{peak_gib:.2f} GiB, {wall:.1f} s wall; bdc_pool launches {bpa_launches} (expected "
+          f"{expected}, phase 11's count)")
+    if not (math.isfinite(acc) and 0.0 <= acc <= 100.0 and bpa_launches == expected):
+        raise AssertionError(f"DeepBDC BPA TTA: accuracy {acc}, bdc_pool launches "
+                             f"{bpa_launches}, expected {expected}")
+    del test
+    torch.cuda.empty_cache()
+    print(flush=True)
 
 
 def main() -> int:
@@ -733,6 +986,8 @@ def main() -> int:
     del test
     torch.cuda.empty_cache()
     print(flush=True)
+
+    metric_and_bpa_phases(ecfg, expected, g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]

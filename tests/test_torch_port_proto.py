@@ -3,7 +3,7 @@ CPU: ``proto_logits`` in both modes, the loss and every gradient at
 ``is_flatten`` true and false (float32, and with a float64 backbone), the
 per-episode accuracies of ``Test.test_loop``, a short SGD run against the
 JAX ``Trainer``; ``build_method``'s knob injection, ``init_weights`` and the
-``Trainer``'s ``init_type`` hook, the ``is_clap`` and ``use_bpa`` guards,
+``Trainer``'s ``init_type`` hook, the ``is_clap`` guard (``use_bpa`` builds),
 the chip cells against the shipped YAML, and the CLIs on
 ``config/synthetic/proto_smoke.yaml``.
 
@@ -248,8 +248,10 @@ def test_train_step_matches_jax(is_flatten, no_dropout):
 
 
 def test_use_bpa_and_is_clap_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        build_method(proto_config(classifier={"name": "ProtoNet", "kwargs": {"use_bpa": True}}))
+    """``use_bpa`` builds since BPA is ported (``test_torch_port_bpa.py``
+    holds it against the JAX package); ``is_clap`` still raises."""
+    assert build_method(proto_config(classifier={"name": "ProtoNet",
+                                                 "kwargs": {"use_bpa": True}})).use_bpa
     with pytest.raises(NotImplementedError, match="Queue A item 9"):
         build_method(proto_config(is_clap=True))
 
