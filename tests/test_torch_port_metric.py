@@ -17,19 +17,26 @@ Tolerances:
   3.2e-6 and 6.3e-6 of the scale);
 - real rows' logits with and without 6 bucket-padded query rows: 1e-6 of
   the scale (``PAD_TOL``; the port against itself);
-- one train step against the JAX package in float64 (train-mode BN is in
-  every chain): the port in float64 to 1e-6 (``F64_TOL``; logits, loss,
-  gradients, running statistics); the port in float32: logits and loss to
-  1e-5 of the logits' scale, gradients to 1e-4 of their max abs
-  (``GRAD_TOL``, as ``test_torch_port_proto.py``; a gradient that vanishes
-  in exact arithmetic, a conv bias before a train-mode BN, is held to
-  1e-4 of the largest gradient), running statistics 1e-5;
-- ADM's float32 train step: its mixer normalises the [−KL ‖ cosine] scores
-  over the batch, where the KL of rank-19 covariances (+ 0.01·I) amplifies
-  the backbone's float32 rounding: logits 7.9e-4 of their scale and
-  gradients 1.4e-3 of the largest from float64 (measured; the JAX
-  package's own float32: 1.1e-4 and 2.6e-3).  Held at 1e-3 and 3e-3
-  (``ADM_F32``).
+- one train step of the whole method against the JAX package with a
+  float64 Conv64F and a float64 head (train-mode BN is in every chain; the
+  map is rounded to float32 in both packages and the port's head is
+  float32), the port with a float32 and with a float64 Conv64F
+  (``STEP_TOLS``): logits and loss to 1e-5 of the logits' scale, gradients
+  to 1e-4 of their max abs (``GRAD_TOL``, as ``test_torch_port_proto.py``),
+  a gradient that vanishes in exact arithmetic (a conv bias before a
+  train-mode BN) to 1e-3 of the largest, running statistics 1e-5.  Measured
+  on the episode of seed 2: gradients 4.2e-5, vanishing ones 3.6e-4
+  (ADM_KL).  ADM's float32 head (the KL of rank-19 covariances + 0.01·I,
+  normalised over the batch by its mixer's BN) is held at 1e-4 on the
+  logits and the running statistics (``ADM_STEP_TOLS``; measured on seeds
+  2-6: 1.2e-5 and 1.7e-5).  On the episodes of seeds 3-6 the float32
+  Conv64F's first-layer weight gradients read up to 1e-2 of their max in
+  the JAX package's own float32 step as in the port's (float32 rounding
+  through four train-mode BNs), so the float32 step is held on seed 2's
+  episode and the float64 one on seeds 2 and 3;
+- the head alone on given maps (``HEAD_TOLS``): the port in float64 to
+  1e-6 (``F64_TOL``) of a float64 JAX head; in float32, logits 1e-5,
+  gradients 1e-4, running statistics 1e-5.
 """
 
 import os
@@ -76,7 +83,6 @@ PAD_TOL = 1e-6
 F64_TOL = 1e-6
 GRAD_TOL = 1e-4
 STATS_TOL = 1e-5
-ADM_F32 = {"logits": 1e-3, "grads": 3e-3}
 SETTING = EpisodeSetting(way=5, shot=2, query=2)
 SPEC = (1, 108, 135)        # Conv64F leaves the shipped 4×5 map
 RELATION_SPEC = (1, 81, 90)  # 9×10 at maxpool_last2: false
@@ -262,14 +268,44 @@ def _running(method, prefix=""):
 
 
 # the whole step: the port against the JAX package built with a float64
-# Conv64F, whose map (rounded to float32) meets a float32 head in both
+# Conv64F, whose map is rounded to float32 in both and meets a float64 head
+# in the JAX package (the port's head: float32)
 STEP_TOLS = {"logits": 1e-5, "grads": GRAD_TOL, "vanishing": 1e-3, "stats": STATS_TOL}
-# ADM: flax's one-pass batch variance of the mixer's BN in float32 (the
-# JAX package's head), over [-KL] scores whose spread is small beside their
-# mean (measured: logits 7.0e-4 of their scale, gradients 2.6e-4, the
-# mixer's running variance 2.9e-5); ``test_head_step_matches_jax_float64``
-# holds the port's head against a float64 one
-ADM_STEP_TOLS = {"logits": 1e-3, "grads": 1e-3, "vanishing": 1e-3, "stats": 1e-4}
+# ADM: the port's float32 head takes the KL of rank-19 covariances (+ 0.01·I)
+# and normalises the [-KL ‖ cosine] scores over the batch (measured on seeds
+# 2-6: logits to 1.2e-5 of their scale, the mixer's running statistics to
+# 1.7e-5)
+ADM_STEP_TOLS = dict(STEP_TOLS, logits=1e-4, stats=1e-4)
+
+
+def _step_reference(name, variables, seed):
+    """One train step of the JAX package with a float64 Conv64F and a float64
+    head on the episode of ``seed``: (loss, logits, gradients, running
+    statistics) under the port's names, and the port's batch."""
+    jb, pb = _batches(name, 1, seed=seed)
+    with jax.enable_x64(True):
+        jax_method = jax_build_method(head_config(name, dtype="float64"))
+        embed = jax_method.embed
+
+        def embed_wide(*args, **kwargs):
+            sup, qry, updates = embed(*args, **kwargs)
+            return sup.astype(np.float64), qry.astype(np.float64), updates
+
+        jax_method.embed = embed_wide
+        wide = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        ref_loss, ref_logits, ref_grads, ref_stats = _jax_loss_and_grads(jax_method, wide, jb)
+    return (ref_loss, ref_logits, _as_port(variables, name, params=ref_grads),
+            _as_port(variables, name, stats=ref_stats)), pb
+
+
+def _check_port_step(name, variables, dtype, pb, ref):
+    method = _port_method(name, variables, dtype).train()
+    loss, out = method.loss(pb, SETTING)
+    loss.backward()
+    named = dict(method.named_parameters())
+    assert len(named) == 16 + N_HEAD_PARAMS.get(name, 0)
+    _check_step(named, _running(method), loss, out, ref,
+                ADM_STEP_TOLS if name == "ADM" else STEP_TOLS)
 
 
 @pytest.mark.parametrize("name", HEADS)
@@ -278,23 +314,21 @@ def test_train_step_matches_jax(name, no_dropout):
     statistics (ATLNet's shared ``W`` BN updated twice, query then support;
     the ADM mixer's; RelationNet's kept ones) after one train step, the port
     in float32 and with a float64 Conv64F, against the JAX package with a
-    float64 Conv64F (train-mode BN is in every chain: the JAX package's
-    float32 one-pass variance is not the reference)."""
+    float64 Conv64F and a float64 head (train-mode BN is in every chain: the
+    JAX package's float32 one-pass variance is not the reference)."""
     variables = _jax_variables(name)
-    jb, pb = _batches(name, 1, seed=2)
-    with jax.enable_x64(True):
-        ref_loss, ref_logits, ref_grads, ref_stats = _jax_loss_and_grads(
-            jax_build_method(head_config(name, dtype="float64")), variables, jb)
-    ref = (ref_loss, ref_logits, _as_port(variables, name, params=ref_grads),
-           _as_port(variables, name, stats=ref_stats))
+    ref, pb = _step_reference(name, variables, seed=2)
     for dtype in (torch.float32, torch.float64):
-        method = _port_method(name, variables, dtype).train()
-        loss, out = method.loss(pb, SETTING)
-        loss.backward()
-        named = dict(method.named_parameters())
-        assert len(named) == 16 + N_HEAD_PARAMS.get(name, 0)
-        _check_step(named, _running(method), loss, out, ref,
-                    ADM_STEP_TOLS if name == "ADM" else STEP_TOLS)
+        _check_port_step(name, variables, dtype, pb, ref)
+
+
+@pytest.mark.parametrize("name", HEADS)
+def test_train_step_float64_matches_jax_on_another_episode(name, no_dropout):
+    """The step of ``test_train_step_matches_jax`` with a float64 Conv64F on
+    a second episode, at the same tolerances."""
+    variables = _jax_variables(name)
+    ref, pb = _step_reference(name, variables, seed=3)
+    _check_port_step(name, variables, torch.float64, pb, ref)
 
 
 N_HEAD_PARAMS = {"ADM": 3, "ConvMNet": 2, "ATLNet": 7, "RelationNet": 12}
