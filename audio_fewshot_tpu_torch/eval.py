@@ -67,6 +67,23 @@ SLICE_MODELS.update({
         ("ConvMNet", "convmnet", None), ("ATLNet", "atlnet", {"feat_dim": 64}),
         ("MCL", "mcl", {"katz_factor": 0.5, "gamma": 20.0, "gamma2": 10.0}),
         ("RelationNet", "relationnet", {"feat_dim": 64}))})
+# the heads on the plain resnet12 (config/backbones/resnet12.yaml; drop_rate
+# 0.1 by default): flat (the [640, 4, 5] avg-pooled map of a [1, 128, 157]
+# segment, 12800 features) or, for FRN and CAN, the [640, 8, 9] map
+_RESNET12 = {"name": "resnet12", "kwargs": {"num_channels": 1}}
+_RESNET12_MAP = {"name": "resnet12", "kwargs": {"num_channels": 1, "is_flatten": False,
+                                                "avg_pool": False}}
+SLICE_MODELS.update({
+    name: {"classifier": {"name": name, "kwargs": kwargs}, "backbone": backbone,
+           "tag": f"{tag}_5shot_iid_seed0"}
+    for name, tag, kwargs, backbone in (
+        ("MetaBaseline", "metabaseline", None, _RESNET12),
+        ("MetaBaselineKendall", "kendall", None, _RESNET12),
+        ("FEAT", "feat", {"hdim": 640, "temperature": 1.0, "temperature2": 1.0,
+                          "balance": 0.5, "mode": "euclidean"}, _RESNET12),
+        ("DSN", "dsn", {"discriminative": True}, _RESNET12),
+        ("FRN", "frn", None, _RESNET12_MAP),
+        ("CAN", "can", {"scale_cls": 7, "num_classes": 25}, _RESNET12_MAP))})
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
@@ -78,7 +95,8 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     (resnet12Bdc, ``reduce_dim`` 64); ``"ProtoNet"``:
     ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F with the 64 → 1600
     logits head); a Conv64F metric head of ``SLICE_MODELS`` (DN4, ADM,
-    ADM_KL, ConvMNet, ATLNet, MCL, RelationNet): its shipped
+    ADM_KL, ConvMNet, ATLNet, MCL, RelationNet) or a resnet12 head
+    (MetaBaseline, MetaBaselineKendall, FEAT, DSN, FRN, CAN): its shipped
     ``*_5shot_iid_seed0.yaml``.  Each with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16

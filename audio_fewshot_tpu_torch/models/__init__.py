@@ -54,14 +54,15 @@ def _build_backbone(config: Dict[str, Any], cls_factory) -> torch.nn.Module:
 def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
     """``(c, h, w)`` of the backbone's output map for the config's segments.
     torch infers no shapes: heads that declare ``needs_map_shape`` (ConvMNet's
-    scorer, ATLNet's transform, RelationNet's ``fc1``) get it at
-    construction, where flax sized them at init from a traced map."""
+    scorer, ATLNet's transform, RelationNet's ``fc1``, FEAT's attention width,
+    CAN's bottleneck) get it at construction, where flax sized them at init
+    from a traced map."""
     from ..data.dataset import segment_shape
 
     if not hasattr(emb_func, "map_shape"):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
-            "states no output map shape yet (the port has it for Conv64F)")
+            "states no output map shape yet (the port has it for Conv64F and resnet12)")
     return tuple(emb_func.map_shape(segment_shape(config)))
 
 

@@ -130,12 +130,66 @@ class Dropout(nn.Module):
         return f"rate={self.rate}"
 
 
+def dropblock_mask(seeds: torch.Tensor, block_size: int) -> torch.Tensor:
+    """The scaled DropBlock mask ``[n, c, h, w]`` of 0/1 ``seeds`` ``[n, c,
+    h − bs + 1, w − bs + 1]`` (``bs`` = ``block_size``), as the JAX package's
+    ``DropBlock`` computes it: the seeds padded by (bs//2, bs − 1 − bs//2) on
+    both sides, dilated by flax's stride-1 "SAME" max pool (which pads
+    ((bs − 1)//2, bs//2): for an even bs that is not torch's symmetric
+    padding, so it is padded here explicitly), ``block = 1 − pooled``, scaled
+    by 1 / max(mean(block), 1e-6) over the whole tensor."""
+    bs = block_size
+    lo, hi = bs // 2, bs - 1 - bs // 2
+    padded = F.pad(seeds, (lo, hi, lo, hi))
+    # zero padding pools as flax's −inf padding: the seeds are ≥ 0 and every
+    # window holds at least one of them
+    lo, hi = (bs - 1) // 2, bs // 2
+    block = 1.0 - F.max_pool2d(F.pad(padded, (lo, hi, lo, hi)), bs, stride=1)
+    return block * (1.0 / block.mean().clamp(min=1e-6))
+
+
+class DropBlock(nn.Module):
+    """DropBlock (counterpart of ``DropBlock`` in the JAX package's
+    ``layers.py``): drops ``block_size`` squares of each channel's map around
+    Bernoulli(γ) seeds drawn over the valid interior ``[n, c, h − bs + 1,
+    w − bs + 1]``, bs = min(``block_size``, h, w), and rescales the rest
+    (``dropblock_mask``).  The seeds come from the module's own
+    ``torch.Generator`` on the input's device, reseeded by ``seed_dropout``;
+    ``gamma`` may be a tensor on the device (no host sync).  The identity in
+    eval."""
+
+    def __init__(self, block_size: int = 5):
+        super().__init__()
+        self.block_size = block_size
+        self.seed = 0
+        self.generator: Optional[torch.Generator] = None
+
+    reseed = Dropout.reseed
+
+    def draw_seeds(self, x: torch.Tensor, gamma) -> torch.Tensor:
+        n, c, h, w = x.shape
+        bs = min(self.block_size, h, w)
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        u = torch.rand((n, c, h - bs + 1, w - bs + 1), device=x.device, generator=self.generator)
+        return (u < gamma).to(torch.float32)
+
+    def forward(self, x: torch.Tensor, gamma) -> torch.Tensor:
+        if not self.training:
+            return x
+        bs = min(self.block_size, *x.shape[-2:])
+        return x * dropblock_mask(self.draw_seeds(x, gamma), bs).to(x.dtype)
+
+    def extra_repr(self) -> str:
+        return f"block_size={self.block_size}"
+
+
 def seed_dropout(module: nn.Module, seed: int) -> None:
-    """Seed every ``Dropout`` of ``module``, each (in module order) with its
-    own seed drawn from ``seed``."""
+    """Seed every ``Dropout`` and ``DropBlock`` of ``module``, each (in module
+    order) with its own seed drawn from ``seed``."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in module.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, DropBlock)):
             m.reseed(int(torch.randint(2 ** 62, (), generator=gen)))
 
 

@@ -1,4 +1,6 @@
 """Method (classifier) registry."""
 
 # register the classifiers
-from . import atl_net, deepbdc, dn4, local_metrics, mcl, proto_net, relation_net  # noqa: F401
+from . import (  # noqa: F401
+    atl_net, can, deepbdc, dn4, dsn, feat, frn, kendall, local_metrics, mcl, meta_baseline,
+    proto_net, relation_net)

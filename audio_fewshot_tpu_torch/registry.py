@@ -28,6 +28,13 @@ class Registry:
 
         return deco
 
+    def register_alias(self, name: str, target: str) -> None:
+        """``name`` builds what the registered ``target`` builds (the
+        reference's exported aliases, e.g. ``DiffKendall``)."""
+        if name in self._factories:
+            raise ValueError(f"duplicate {self.kind} registration {name!r}")
+        self._factories[name] = self.get(target)
+
     def __contains__(self, name: str) -> bool:
         return name in self._factories
 

@@ -48,8 +48,9 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
     ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
     (resnet12Bdc, planes 64/160/320/640, ``reduce_dim`` 64);
     ``"ProtoNet"``: ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F
-    with ``is_flatten``: the 64 → 1600 logits head); a Conv64F metric head of
-    ``eval.SLICE_MODELS``: its shipped ``*_5shot_iid_seed0.yaml``.  Each with
+    with ``is_flatten``: the 64 → 1600 logits head); a Conv64F or resnet12
+    metric head of ``eval.SLICE_MODELS``: its shipped
+    ``*_5shot_iid_seed0.yaml``.  Each with
     its headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
     ``[1, 128, 157]`` segments, one episode a step (75 segments), bf16
     backbone and fp32 head, Adam at lr 0.005 with CosineAnnealingLR(T_max

@@ -6,11 +6,15 @@ the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` (which have
 no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
 [in, out] → Linear [out, in]; BatchNorm ``scale``/``bias`` (params) and
 ``mean``/``var`` (batch_stats) → ``weight``/``bias``/``running_mean``/
-``running_var``.  The heads with parameters (ADM, ConvMNet, ATLNet,
-RelationNet) map onto the reference torch names, the port's copy of
-``invert_{adm,convmnet,atlnet,relationnet}_head_params`` in
-``tools/cross_framework_parity.py``.  The variables arrive as nested dicts
-of numpy arrays, so this module needs no JAX.
+``running_var``.  resnet12 / resnet12woLSC / resnet12Bdc also carry their
+DropBlock ramp counters (``batch_stats[layer{3,4}]["num_batches_tracked"]``
+→ ``layer{3,4}.0.num_batches_tracked``, int64) where the variables hold
+them, which the JAX package's inverter drops.  The heads with parameters
+(ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN) map onto
+the reference torch names, the port's copy of
+``invert_{adm,convmnet,atlnet,relationnet,metabaseline,feat,frn,can}_head_params``
+in ``tools/cross_framework_parity.py``.  The variables arrive as nested
+dicts of numpy arrays, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ def _resnet12(params, stats, state) -> None:
             state[f"{blk}.downsample.0.weight"] = _conv(p["downsample_conv"]["kernel"])
             _bn(state, f"{blk}.downsample.1",
                 p["downsample_bn"]["BatchNorm_0"], s["downsample_bn"]["BatchNorm_0"])
+        if "num_batches_tracked" in s:
+            # DropBlock's ramp counter (stages 3 and 4 with drop_rate > 0)
+            state[f"{blk}.num_batches_tracked"] = np.asarray(s["num_batches_tracked"],
+                                                             dtype=np.int64)
 
 
 def _resnet12bdc(params, stats, state) -> None:
@@ -97,6 +105,8 @@ _CONVERTERS = {
     "Conv32F": _convnf,
     "Conv64F_MCL": _convnf,  # the same layer{i} = (bias-free conv, BN) layout
     "R2D2Embedding": _r2d2emb,
+    "resnet12": _resnet12,
+    "resnet12woLSC": _resnet12,  # no downsample in stage 4
     "resnet12Bdc": _resnet12bdc,
 }
 
@@ -152,24 +162,76 @@ def _relationnet_head(head, stats, state) -> None:
         state[f"relation_layer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
 
 
+def _metabaseline_head(head, stats, state) -> None:
+    """MetaBaseline: ``temp`` (a scalar) → ``temp``."""
+    state["temp"] = np.asarray(head["temp"])
+
+
+def _feat_head(head, stats, state) -> None:
+    """FEAT's set attention: ``w_q`` / ``w_k`` / ``w_v`` (bias-free) / ``fc``
+    / ``ln`` → ``slf_attn.w_qs`` / ``w_ks`` / ``w_vs`` / ``fc`` /
+    ``layer_norm``."""
+    for ours, theirs in (("w_q", "w_qs"), ("w_k", "w_ks"), ("w_v", "w_vs")):
+        state[f"slf_attn.{theirs}.weight"] = _linear(head[ours]["kernel"])
+    state["slf_attn.fc.weight"] = _linear(head["fc"]["kernel"])
+    state["slf_attn.fc.bias"] = np.asarray(head["fc"]["bias"])
+    state["slf_attn.layer_norm.weight"] = np.asarray(head["ln"]["scale"])
+    state["slf_attn.layer_norm.bias"] = np.asarray(head["ln"]["bias"])
+
+
+def _frn_head(head, stats, state) -> None:
+    """FRN: ``scale`` (a scalar) / ``r`` [2] → ``frn_layer.scale`` [1] /
+    ``frn_layer.r``."""
+    state["frn_layer.scale"] = np.asarray(head["scale"]).reshape(1)
+    state["frn_layer.r"] = np.asarray(head["r"])
+
+
+def _dense_as_conv1x1(w) -> np.ndarray:
+    """flax Dense [in, out] → torch 1×1 Conv2d [out, in, 1, 1]."""
+    return np.ascontiguousarray(np.asarray(w).T[:, :, None, None])
+
+
+def _can_head(params, stats, state) -> None:
+    """CAN (whole ``params``: its modules are ``cam`` and ``global_fc``, not
+    ``head``): ``cam.conv1`` / ``bn1`` / ``conv2`` → ``cam_layer.cam.conv1.conv``
+    / ``conv1.bn`` / ``conv2``; ``global_fc`` → ``cam_layer.classifier``."""
+    cam = params["cam"]
+    state["cam_layer.cam.conv1.conv.weight"] = _dense_as_conv1x1(cam["conv1"]["kernel"])
+    state["cam_layer.cam.conv1.conv.bias"] = np.asarray(cam["conv1"]["bias"])
+    _head_bn(state, "cam_layer.cam.conv1.bn", cam["bn1"]["BatchNorm_0"],
+             stats.get("cam", {}).get("bn1", {}).get("BatchNorm_0", {}))
+    state["cam_layer.cam.conv2.weight"] = _dense_as_conv1x1(cam["conv2"]["kernel"])
+    state["cam_layer.cam.conv2.bias"] = np.asarray(cam["conv2"]["bias"])
+    state["cam_layer.classifier.weight"] = _dense_as_conv1x1(params["global_fc"]["kernel"])
+    state["cam_layer.classifier.bias"] = np.asarray(params["global_fc"]["bias"])
+
+
 _HEAD_CONVERTERS = {
     "ADM": _adm_head,
     "ConvMNet": _convmnet_head,
     "ATLNet": _atlnet_head,
     "RelationNet": _relationnet_head,
+    "MetaBaseline": _metabaseline_head,
+    "FEAT": _feat_head,
+    "FRN": _frn_head,
 }
+# heads whose JAX modules sit beside ``emb_func`` under their own names
+_METHOD_CONVERTERS = {"CAN": _can_head}
 
 
 def head_state_dict_from_jax(variables: Dict[str, Any],
                              classifier: str) -> Dict[str, np.ndarray]:
     """The head's entries of a method's state dict (method-level keys, the
     reference torch names) from the JAX package's ``params["head"]`` and
-    ``batch_stats["head"]``; empty for a head without parameters."""
-    if classifier not in _HEAD_CONVERTERS:
-        return {}
+    ``batch_stats["head"]`` (CAN: its ``cam`` and ``global_fc`` modules);
+    empty for a head without parameters."""
     state: Dict[str, np.ndarray] = {}
-    _HEAD_CONVERTERS[classifier](variables["params"]["head"],
-                                 variables.get("batch_stats", {}).get("head", {}), state)
+    if classifier in _METHOD_CONVERTERS:
+        _METHOD_CONVERTERS[classifier](variables["params"], variables.get("batch_stats", {}),
+                                       state)
+    elif classifier in _HEAD_CONVERTERS:
+        _HEAD_CONVERTERS[classifier](variables["params"]["head"],
+                                     variables.get("batch_stats", {}).get("head", {}), state)
     return state
 
 

@@ -48,7 +48,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-14, which run before it);
+   (printed after phases 9-16, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -81,9 +81,25 @@ Phases (any failure ends the script with a non-zero exit code):
    12's cut (transport over [support ‖ query] sets of 25 + the query
    bucket, 281 rows), one float32 episode card vs CPU; DeepBDC with ``use_bpa`` and the TTA
    re-vote at phase 11's cut, whose ``bdc_pool`` launches must be phase
-   11's count.
+   11's count;
+15. the heads on the plain resnet12 (MetaBaseline, MetaBaselineKendall,
+   FEAT, DSN on its flat 12800 features; FRN and CAN on its [640, 8, 9]
+   map), each its shipped ``*_5shot_iid_seed0`` at full width through
+   ``Test`` at phase 12's cut (Kendall at one epoch of 32 episodes: its
+   exact pair count takes seconds a step): eval eps/s of each epoch, ms a
+   step, peak memory, BDC launches (must be 0), one float32 episode's logits
+   on the card against the CPU, and the phase's wall;
+16. their training, each one epoch at phase 13's cut with ``drop_rate`` 0.1
+   as shipped (finite losses, train eps/s, ms a step, peak memory, BDC
+   launches 0; Kendall's peak within 4 GiB of MetaBaseline's); then one
+   MetaBaseline epoch started mid-ramp, from DropBlock counters at 30000 (the
+   end of a shipped 30 x 1000-episode run): the share each DropBlock drops
+   against 1 - keep; and one more epoch through resume, which must carry the
+   counters on.
 
-Without a CUDA device it exits non-zero before printing any result.
+``python3 chip_smoke.py --resnet12-only`` runs phases 15-16 alone and prints
+no result line.  Without a CUDA device it exits non-zero before printing
+any result.
 """
 
 from __future__ import annotations
@@ -123,6 +139,21 @@ HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
 # phases 12 and 14's eval cut: 2 test epochs of 256 episodes (16 steps of 16)
 # each, so that each epoch's eps/s is read over many steps and the two agree
 EVAL_CUT = {"test_episode": 256, "test_epoch": 2}
+# phases 15 and 16: the heads on the plain resnet12, with the map each sees
+RESNET12_HEADS = ("MetaBaseline", "MetaBaselineKendall", "FEAT", "DSN", "FRN", "CAN")
+_FLAT = "resnet12's [640, 4, 5] avg-pooled map, 12800 features"
+RESNET12_MAPS = {"MetaBaseline": _FLAT, "MetaBaselineKendall": _FLAT, "FEAT": _FLAT,
+                 "DSN": _FLAT, "FRN": "resnet12's [640, 8, 9] map",
+                 "CAN": "resnet12's [640, 8, 9] map"}
+# Kendall's exact eval counts 81.9 M channel pairs for each of 16 x 256
+# queries and 5 prototypes: seconds a step, so a cut of its own
+KENDALL_EVAL_CUT = {"test_episode": 32, "test_epoch": 1}
+KENDALL_CPU_QUERIES = 16
+# Kendall's training recomputes its pair terms in the backward: its peak
+# stays within this many GiB of MetaBaseline's
+KENDALL_PEAK_MARGIN_GIB = 4.0
+# the DropBlock counters at the end of a shipped 30 x 1000-episode run
+RAMP_START = 30000
 # Recorded, not measured by this script: the kernel's time before its redesign
 # for Hopper, at the main-path shape (4496, 64, 304) on an NVIDIA H100 80GB
 # HBM3 at 700 W.  Printed as context only, never in the `kernels` line.
@@ -481,12 +512,151 @@ def metric_and_bpa_phases(ecfg, expected: int, g: int) -> None:
     print(flush=True)
 
 
+def dropblock_shares(method):
+    """Forward hooks on the backbone's DropBlock modules: each call adds the
+    share of its input's nonzero elements that it zeroed (a tensor on the
+    card, read after the run).  Returns {block: [shares]} and the hooks."""
+    shares, hooks = {}, []
+    for i in (3, 4):
+        drop = getattr(method.emb_func, f"layer{i}")[0].drop
+        shares[i] = []
+
+        def hook(mod, args, out, i=i):
+            if mod.training:
+                live = args[0] != 0
+                shares[i].append(((out == 0) & live).sum() / live.sum())
+
+        hooks.append(drop.register_forward_hook(hook))
+    return shares, hooks
+
+
+def resnet12_phases(g: int) -> None:
+    """Phases 15-16: the six resnet12 heads' evaluation and training, the
+    DropBlock ramp started mid-run, and its resume.  ``g``: the query
+    segments of a card-vs-CPU episode."""
+    import torch
+
+    from audio_fewshot_tpu_torch import run_trainer_resume, train
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+
+    # -- 15. the resnet12 heads: evaluation ----------------------------------------------------
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for head in RESNET12_HEADS:
+        t0 = time.time()
+        cut = KENDALL_EVAL_CUT if head == "MetaBaselineKendall" else EVAL_CUT
+        hcfg = slice_config(classifier=head, **cut)
+        eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
+        note = (" (Kendall's own cut: its exact pair count takes seconds a step, so "
+                f"{cut['test_epoch']} epoch(s) of {cut['test_episode']} episodes)"
+                if cut is KENDALL_EVAL_CUT else "")
+        print(f"[resnet12-eval] {hcfg['tag']} at full width ({RESNET12_MAPS[head]}), bf16 "
+              f"backbone, fp32 head, {hcfg['test_episode_size']} episodes a step, "
+              f"{hcfg['test_epoch']} epochs of {hcfg['test_episode']} test episodes{note}: "
+              f"accuracy {acc:.3f}, eval eps/s by epoch {[round(r, 2) for r in eps]}, "
+              f"{ms:.1f} ms a step, peak memory {peak_gib:.2f} GiB, BDC launches "
+              f"{bdc_launches} (expected 0)")
+        if not math.isfinite(acc) or any(bdc_launches):
+            raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {bdc_launches}")
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = False
+        gh = KENDALL_CPU_QUERIES if head == "MetaBaselineKendall" else g
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), gh)
+        print(f"[resnet12-eval] {head} fp32 segment logits {shape}: card vs CPU "
+              f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
+              f"{agree:.4f}; {time.time() - t0:.1f} s for the head")
+        if not rel <= LOGIT_REL_LIMIT:
+            raise AssertionError(f"float32 {head} card logits disagree with the CPU")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.empty_cache()
+    print(f"[resnet12-eval] phase 15 wall {time.time() - t_phase:.1f} s", flush=True)
+    print(flush=True)
+
+    # -- 16. the resnet12 heads: training; the ramp mid-run and its resume ----------------------
+    t_phase = time.time()
+    peaks = {}
+    for head in RESNET12_HEADS:
+        with tempfile.TemporaryDirectory() as result_root:
+            hcfg = train.slice_config(result_root, classifier=head, **HEAD_TRAIN_CUT)
+            rows, peaks[head], bdc_launches = run_trainer(hcfg)
+        beside = (f" (MetaBaseline's {peaks['MetaBaseline']:.2f} GiB; limit + "
+                  f"{KENDALL_PEAK_MARGIN_GIB} GiB)" if head == "MetaBaselineKendall" else "")
+        for r in rows:
+            print(f"[resnet12-train] {hcfg['tag']} at full width, bf16, augment on, drop_rate "
+                  f"0.1, epoch {r['epoch']} of {r['train_eps_count']} episodes: "
+                  f"{r['train_eps']:.2f} train eps/s, step {r['step_ms']:.1f} ms, loss "
+                  f"{r['train_losses'][0]:.4f} -> {r['train_losses'][-1]:.4f}, val acc "
+                  f"{r['val_acc']:.3f}, test acc {r['test_acc']:.3f}; peak memory "
+                  f"{peaks[head]:.2f} GiB{beside}; BDC launches {bdc_launches} (expected 0)")
+        if any(bdc_launches):
+            raise AssertionError(f"{head} training: BDC launches {bdc_launches}")
+        torch.cuda.empty_cache()
+    if peaks["MetaBaselineKendall"] > peaks["MetaBaseline"] + KENDALL_PEAK_MARGIN_GIB:
+        raise AssertionError("MetaBaselineKendall's training keeps its pair activations: "
+                             f"peak {peaks['MetaBaselineKendall']:.2f} GiB")
+    # the ramp: one MetaBaseline epoch from the counters at 30000 (the end of
+    # a shipped 30 x 1000-episode run), then one more through resume
+    with tempfile.TemporaryDirectory() as result_root:
+        hcfg = train.slice_config(result_root, classifier="MetaBaseline", **HEAD_TRAIN_CUT)
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        trainer = train.Trainer(0, hcfg, device="cuda")
+        blocks = [getattr(trainer.method.emb_func, f"layer{i}")[0] for i in (3, 4)]
+        for block in blocks:
+            block.num_batches_tracked.fill_(RAMP_START)
+        shares, hooks = dropblock_shares(trainer.method)
+        trainer.train_loop()
+        for hook in hooks:
+            hook.remove()
+        steps = sum(len(r["train_losses"]) for r in trainer.history)
+        counts = [int(b.num_batches_tracked) for b in blocks]
+        for i, block in zip((3, 4), blocks):
+            measured = torch.stack(shares[i]).mean().item()
+            keep = max(1.0 - block.drop_rate / block.drop_schedule_steps * counts[i - 3],
+                       1.0 - block.drop_rate)
+            print(f"[ramp] STARTED MID-RAMP (counters set to {RAMP_START} before the epoch, "
+                  f"not a run from 0): layer{i} DropBlock dropped {measured:.4f} of its "
+                  f"nonzero inputs a step over {len(shares[i])} train steps, expected about "
+                  f"1 - keep = {1 - keep:.4f} (keep = max(1 - 0.1/40000 x count, 0.9) at "
+                  f"count {counts[i - 3]})")
+            if not 0.5 * (1 - keep) <= measured <= 1.5 * (1 - keep):
+                raise AssertionError(f"layer{i} DropBlock dropped {measured}, expected about "
+                                     f"{1 - keep}")
+        if counts != [RAMP_START + steps] * 2:
+            raise AssertionError(f"the counters read {counts} after {steps} steps from "
+                                 f"{RAMP_START}")
+        resumed = run_trainer_resume.build_trainer(
+            [trainer.result_dir, "--device", "cuda", "--epoch", str(hcfg["epoch"] + 1)])
+        carried = [int(getattr(resumed.method.emb_func, f"layer{i}")[0].num_batches_tracked)
+                   for i in (3, 4)]
+        resumed.train_loop()
+        after = [int(getattr(resumed.method.emb_func, f"layer{i}")[0].num_batches_tracked)
+                 for i in (3, 4)]
+        more = sum(len(r["train_losses"]) for r in resumed.history)
+        print(f"[ramp] resumed at epoch {resumed.start_epoch}: the counters read {carried} "
+              f"from the checkpoint (saved {counts}), {after} after {more} more steps; BDC "
+              f"launches {(bdc_cuda.launches, bdc_cuda.backward_launches)} (expected 0)")
+        if carried != counts or after != [c + more for c in counts] or (
+                bdc_cuda.launches or bdc_cuda.backward_launches):
+            raise AssertionError(f"resume: counters {carried} -> {after}, saved {counts}")
+        del trainer, resumed
+    torch.cuda.empty_cache()
+    print(f"[resnet12-train] phase 16 wall {time.time() - t_phase:.1f} s", flush=True)
+    print(flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if "--resnet12-only" in sys.argv[1:]:
+        # phases 15-16 alone, for iterating on them; prints no result line
+        resnet12_phases(64)
+        print("chip_smoke: phases 15-16 only (--resnet12-only); not a full run")
+        return 0
     from audio_fewshot_tpu_torch.data import get_dataloader
     from audio_fewshot_tpu_torch.episode import EpisodeBatch
     from audio_fewshot_tpu_torch.eval import Test, slice_config
@@ -990,6 +1160,7 @@ def main() -> int:
     print(flush=True)
 
     metric_and_bpa_phases(ecfg, expected, g)
+    resnet12_phases(g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]

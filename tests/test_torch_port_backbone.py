@@ -101,10 +101,17 @@ def test_bf16_backbone_feeds_an_fp32_head(jax_model):
 
 
 def test_training_mode_is_refused():
-    """Train mode runs since the training slice; with DropBlock
-    (drop_rate > 0, not ported yet) it is refused, not skipped."""
+    """Train mode with DropBlock (drop_rate > 0) was refused until DropBlock
+    was ported; it runs now: Dropout after stages 1-2, DropBlock after stages
+    3-4 with its ramp counter (``test_torch_port_resnet12.py`` holds it
+    against the JAX package), and eval ignores both."""
     model = ResNet12BDC(reduce_dim=8, drop_rate=0.1, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="DropBlock"):
-        model(torch.zeros(SHAPE))
+    x = torch.randn(SHAPE, generator=torch.Generator().manual_seed(0))
+    assert model(x).shape == (SHAPE[0], 36)
+    assert [int(model.layer3[0].num_batches_tracked), int(model.layer4[0].num_batches_tracked)] \
+        == [1, 1]
     model.eval()
-    assert model(torch.zeros(SHAPE)).shape == (SHAPE[0], 36)
+    with torch.no_grad():
+        a, b = model(x), model(x)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(model.layer4[0].num_batches_tracked) == 1
