@@ -101,15 +101,13 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
                          track_running_stats=use_running_statistics)
 
 
-class Dropout(nn.Module):
-    """Inverted dropout (keep with probability 1 − ``rate``, scale the kept
-    values by 1 / (1 − ``rate``)), as flax's ``nn.Dropout``.  The mask comes
-    from the module's own ``torch.Generator`` on the input's device, seeded
-    by ``seed_dropout``, never from the global RNG.  The identity in eval."""
+class _SeededNoise(nn.Module):
+    """A train-mode noise layer that draws from its own ``torch.Generator``
+    on the input's device, seeded by ``seed_dropout`` (``reseed``), never
+    from the global RNG."""
 
-    def __init__(self, rate: float):
+    def __init__(self):
         super().__init__()
-        self.rate = rate
         self.seed = 0
         self.generator: Optional[torch.Generator] = None
 
@@ -117,13 +115,28 @@ class Dropout(nn.Module):
         self.seed = int(seed)
         self.generator = None
 
+    def _generator(self, x: torch.Tensor) -> torch.Generator:
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        return self.generator
+
+
+class Dropout(_SeededNoise):
+    """Inverted dropout (keep with probability 1 − ``rate``, scale the kept
+    values by 1 / (1 − ``rate``)), as flax's ``nn.Dropout``.  The mask comes
+    from the module's own generator (``_SeededNoise``).  The identity in
+    eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.generator is None or self.generator.device != x.device:
-            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
         keep_prob = 1.0 - self.rate
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=self.generator)
+        gen = self._generator(x)
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(keep_prob, generator=gen)
         return torch.where(keep.bool(), x / keep_prob, torch.zeros_like(x))
 
     def extra_repr(self) -> str:
@@ -148,30 +161,24 @@ def dropblock_mask(seeds: torch.Tensor, block_size: int) -> torch.Tensor:
     return block * (1.0 / block.mean().clamp(min=1e-6))
 
 
-class DropBlock(nn.Module):
+class DropBlock(_SeededNoise):
     """DropBlock (counterpart of ``DropBlock`` in the JAX package's
     ``layers.py``): drops ``block_size`` squares of each channel's map around
     Bernoulli(γ) seeds drawn over the valid interior ``[n, c, h − bs + 1,
     w − bs + 1]``, bs = min(``block_size``, h, w), and rescales the rest
-    (``dropblock_mask``).  The seeds come from the module's own
-    ``torch.Generator`` on the input's device, reseeded by ``seed_dropout``;
-    ``gamma`` may be a tensor on the device (no host sync).  The identity in
-    eval."""
+    (``dropblock_mask``).  The seeds come from the module's own generator
+    (``_SeededNoise``); ``gamma`` may be a tensor on the device (no host
+    sync).  The identity in eval."""
 
     def __init__(self, block_size: int = 5):
         super().__init__()
         self.block_size = block_size
-        self.seed = 0
-        self.generator: Optional[torch.Generator] = None
-
-    reseed = Dropout.reseed
 
     def draw_seeds(self, x: torch.Tensor, gamma) -> torch.Tensor:
         n, c, h, w = x.shape
         bs = min(self.block_size, h, w)
-        if self.generator is None or self.generator.device != x.device:
-            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
-        u = torch.rand((n, c, h - bs + 1, w - bs + 1), device=x.device, generator=self.generator)
+        u = torch.rand((n, c, h - bs + 1, w - bs + 1), device=x.device,
+                       generator=self._generator(x))
         return (u < gamma).to(torch.float32)
 
     def forward(self, x: torch.Tensor, gamma) -> torch.Tensor:
@@ -189,7 +196,7 @@ def seed_dropout(module: nn.Module, seed: int) -> None:
     order) with its own seed drawn from ``seed``."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in module.modules():
-        if isinstance(m, (Dropout, DropBlock)):
+        if isinstance(m, _SeededNoise):
             m.reseed(int(torch.randint(2 ** 62, (), generator=gen)))
 
 

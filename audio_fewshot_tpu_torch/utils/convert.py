@@ -122,23 +122,33 @@ def _head_bn(state, key: str, params: Dict, stats: Dict) -> None:
     state[key + ".running_var"] = np.asarray(stats.get("var", np.ones_like(scale)))
 
 
-def _adm_head(head, stats, state) -> None:
+def _head(params: Dict, stats: Dict):
+    """A head's parameters and statistics, the modules under ``head`` (every
+    head converter takes the whole method's trees: CAN's modules sit beside
+    ``emb_func`` under their own names)."""
+    return params["head"], stats.get("head", {})
+
+
+def _adm_head(params, stats, state) -> None:
     """ADM's mixer: ``norm`` → ``adm_layer.normLayer`` (BatchNorm1d(2·way)),
     ``mix`` [2] → ``adm_layer.fcLayer.weight`` [1, 1, 2]."""
+    head, stats = _head(params, stats)
     _head_bn(state, "adm_layer.normLayer", head["norm"], stats.get("norm", {}))
     state["adm_layer.fcLayer.weight"] = np.asarray(head["mix"]).reshape(1, 1, 2)
 
 
-def _convmnet_head(head, stats, state) -> None:
+def _convmnet_head(params, stats, state) -> None:
     """ConvMNet's scorer: ``kernel`` [hw, 1] / ``bias`` →
     ``convm_layer.conv1dLayer.2`` (Conv1d(1, 1, hw))."""
+    head = params["head"]
     state["convm_layer.conv1dLayer.2.weight"] = np.asarray(head["kernel"])[:, 0].reshape(1, 1, -1)
     state["convm_layer.conv1dLayer.2.bias"] = np.asarray(head["bias"])
 
 
-def _atlnet_head(head, stats, state) -> None:
+def _atlnet_head(params, stats, state) -> None:
     """ATLNet: ``w_conv`` / ``w_bn`` → ``atlLayer.W.0`` / ``.1``; ``psi1`` /
     ``psi2`` → ``atlLayer.attenLayer.f_psi.0`` / ``.2``."""
+    head, stats = _head(params, stats)
     state["atlLayer.W.0.weight"] = _conv(head["w_conv"]["kernel"])
     _head_bn(state, "atlLayer.W.1", head["w_bn"]["BatchNorm_0"],
              stats.get("w_bn", {}).get("BatchNorm_0", {}))
@@ -147,10 +157,11 @@ def _atlnet_head(head, stats, state) -> None:
         state[f"atlLayer.attenLayer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
 
 
-def _relationnet_head(head, stats, state) -> None:
+def _relationnet_head(params, stats, state) -> None:
     """RelationNet: ``conv1`` / ``bn1`` / ``conv2`` / ``bn2`` →
     ``relation_layer.layers.{0,1,4,5}``; ``fc1`` / ``fc2`` →
     ``relation_layer.fc.{0,2}``."""
+    head, stats = _head(params, stats)
     for ours, theirs in (("conv1", "layers.0"), ("conv2", "layers.4")):
         state[f"relation_layer.{theirs}.weight"] = _conv(head[ours]["kernel"])
         state[f"relation_layer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
@@ -162,15 +173,17 @@ def _relationnet_head(head, stats, state) -> None:
         state[f"relation_layer.{theirs}.bias"] = np.asarray(head[ours]["bias"])
 
 
-def _metabaseline_head(head, stats, state) -> None:
+def _metabaseline_head(params, stats, state) -> None:
     """MetaBaseline: ``temp`` (a scalar) → ``temp``."""
+    head = params["head"]
     state["temp"] = np.asarray(head["temp"])
 
 
-def _feat_head(head, stats, state) -> None:
+def _feat_head(params, stats, state) -> None:
     """FEAT's set attention: ``w_q`` / ``w_k`` / ``w_v`` (bias-free) / ``fc``
     / ``ln`` → ``slf_attn.w_qs`` / ``w_ks`` / ``w_vs`` / ``fc`` /
     ``layer_norm``."""
+    head = params["head"]
     for ours, theirs in (("w_q", "w_qs"), ("w_k", "w_ks"), ("w_v", "w_vs")):
         state[f"slf_attn.{theirs}.weight"] = _linear(head[ours]["kernel"])
     state["slf_attn.fc.weight"] = _linear(head["fc"]["kernel"])
@@ -179,9 +192,10 @@ def _feat_head(head, stats, state) -> None:
     state["slf_attn.layer_norm.bias"] = np.asarray(head["ln"]["bias"])
 
 
-def _frn_head(head, stats, state) -> None:
+def _frn_head(params, stats, state) -> None:
     """FRN: ``scale`` (a scalar) / ``r`` [2] → ``frn_layer.scale`` [1] /
     ``frn_layer.r``."""
+    head = params["head"]
     state["frn_layer.scale"] = np.asarray(head["scale"]).reshape(1)
     state["frn_layer.r"] = np.asarray(head["r"])
 
@@ -192,8 +206,8 @@ def _dense_as_conv1x1(w) -> np.ndarray:
 
 
 def _can_head(params, stats, state) -> None:
-    """CAN (whole ``params``: its modules are ``cam`` and ``global_fc``, not
-    ``head``): ``cam.conv1`` / ``bn1`` / ``conv2`` → ``cam_layer.cam.conv1.conv``
+    """CAN (its modules are ``cam`` and ``global_fc``, not ``head``):
+    ``cam.conv1`` / ``bn1`` / ``conv2`` → ``cam_layer.cam.conv1.conv``
     / ``conv1.bn`` / ``conv2``; ``global_fc`` → ``cam_layer.classifier``."""
     cam = params["cam"]
     state["cam_layer.cam.conv1.conv.weight"] = _dense_as_conv1x1(cam["conv1"]["kernel"])
@@ -214,9 +228,8 @@ _HEAD_CONVERTERS = {
     "MetaBaseline": _metabaseline_head,
     "FEAT": _feat_head,
     "FRN": _frn_head,
+    "CAN": _can_head,
 }
-# heads whose JAX modules sit beside ``emb_func`` under their own names
-_METHOD_CONVERTERS = {"CAN": _can_head}
 
 
 def head_state_dict_from_jax(variables: Dict[str, Any],
@@ -226,12 +239,8 @@ def head_state_dict_from_jax(variables: Dict[str, Any],
     ``batch_stats["head"]`` (CAN: its ``cam`` and ``global_fc`` modules);
     empty for a head without parameters."""
     state: Dict[str, np.ndarray] = {}
-    if classifier in _METHOD_CONVERTERS:
-        _METHOD_CONVERTERS[classifier](variables["params"], variables.get("batch_stats", {}),
-                                       state)
-    elif classifier in _HEAD_CONVERTERS:
-        _HEAD_CONVERTERS[classifier](variables["params"]["head"],
-                                     variables.get("batch_stats", {}).get("head", {}), state)
+    if classifier in _HEAD_CONVERTERS:
+        _HEAD_CONVERTERS[classifier](variables["params"], variables.get("batch_stats", {}), state)
     return state
 
 

@@ -97,9 +97,7 @@ Phases (any failure ends the script with a non-zero exit code):
    against 1 - keep; and one more epoch through resume, which must carry the
    counters on.
 
-``python3 chip_smoke.py --resnet12-only`` runs phases 15-16 alone and prints
-no result line.  Without a CUDA device it exits non-zero before printing
-any result.
+Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -618,7 +616,8 @@ def resnet12_phases(g: int) -> None:
             print(f"[ramp] STARTED MID-RAMP (counters set to {RAMP_START} before the epoch, "
                   f"not a run from 0): layer{i} DropBlock dropped {measured:.4f} of its "
                   f"nonzero inputs a step over {len(shares[i])} train steps, expected about "
-                  f"1 - keep = {1 - keep:.4f} (keep = max(1 - 0.1/40000 x count, 0.9) at "
+                  f"1 - keep = {1 - keep:.4f} (keep = max(1 - {block.drop_rate}/"
+                  f"{block.drop_schedule_steps} x count, {1 - block.drop_rate}) at "
                   f"count {counts[i - 3]})")
             if not 0.5 * (1 - keep) <= measured <= 1.5 * (1 - keep):
                 raise AssertionError(f"layer{i} DropBlock dropped {measured}, expected about "
@@ -652,11 +651,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if "--resnet12-only" in sys.argv[1:]:
-        # phases 15-16 alone, for iterating on them; prints no result line
-        resnet12_phases(64)
-        print("chip_smoke: phases 15-16 only (--resnet12-only); not a full run")
-        return 0
     from audio_fewshot_tpu_torch.data import get_dataloader
     from audio_fewshot_tpu_torch.episode import EpisodeBatch
     from audio_fewshot_tpu_torch.eval import Test, slice_config

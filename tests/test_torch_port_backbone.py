@@ -100,11 +100,11 @@ def test_bf16_backbone_feeds_an_fp32_head(jax_model):
     assert ((a - b).abs().max() / a.abs().max()).item() < 5e-2
 
 
-def test_training_mode_is_refused():
-    """Train mode with DropBlock (drop_rate > 0) was refused until DropBlock
-    was ported; it runs now: Dropout after stages 1-2, DropBlock after stages
-    3-4 with its ramp counter (``test_torch_port_resnet12.py`` holds it
-    against the JAX package), and eval ignores both."""
+def test_training_mode_runs_dropblock_and_eval_ignores_it():
+    """Train mode with drop_rate > 0: Dropout after stages 1-2, DropBlock
+    after stages 3-4 with its ramp counter counting the forward
+    (``test_torch_port_resnet12.py`` holds both against the JAX package);
+    eval is deterministic and leaves the counter alone."""
     model = ResNet12BDC(reduce_dim=8, drop_rate=0.1, dtype=torch.float32)
     x = torch.randn(SHAPE, generator=torch.Generator().manual_seed(0))
     assert model(x).shape == (SHAPE[0], 36)

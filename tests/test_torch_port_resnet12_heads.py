@@ -21,8 +21,10 @@ Tolerances (relative to the logits' scale, or to a gradient's max abs):
   (the packages cannot draw the same masks): loss and logits 1e-5, every
   gradient 1e-4 of its max abs (a tenth of the largest where that is more;
   ``GRAD_TOL``), running statistics 1e-5, the port with a float32 and with
-  a float64 resnet12.  DSN's subspace comes from a float32 SVD in the JAX
-  package's step too; its step is held at ``DSN_STEP_TOLS``.
+  a float64 resnet12 (``STEP_TOLS``; the float32 port at ``F32_STEP_TOLS``).
+  DSN's step, through both packages' SVDs, is held at the same limits: on
+  the CPU its float64 port reads loss 3.6e-8, logits 2.4e-7, gradients
+  2.7e-6 of their max abs, and the float32 port's gradients 2.6e-3.
 """
 
 import os

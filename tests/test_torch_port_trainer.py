@@ -164,19 +164,21 @@ def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
 @pytest.mark.parametrize("over, match", [
     ({"profile_steps": 2}, "profile_steps"),
     ({"dataloader_num": 2}, "dataloader_num"),
-    # DropBlock (drop_rate > 0) raised here until it was ported: it trains now
-    ({"backbone": {"name": "resnet12Bdc",
-                   "kwargs": {"num_channels": 1, "reduce_dim": 8, "drop_rate": 0.1}}}, None),
-], ids=["profile_steps", "dual_loader", "dropblock"])
+], ids=["profile_steps", "dual_loader"])
 def test_unported_training_features_raise(tmp_path, over, match):
-    if match is None:
-        trainer = Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu")
-        trainer.train_loop()
-        assert _losses(trainer) and np.isfinite(_losses(trainer)).all()
-        assert int(trainer.method.emb_func.layer4[0].num_batches_tracked) == 2  # 2 epochs x 1
-        return
     with pytest.raises(NotImplementedError, match=match):
         Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu").train_loop()
+
+
+def test_resnet12bdc_trains_with_dropblock(tmp_path):
+    """resnet12Bdc at drop_rate 0.1 (the JAX default): finite losses, and the
+    DropBlock counter counts one per train step."""
+    over = {"backbone": {"name": "resnet12Bdc",
+                         "kwargs": {"num_channels": 1, "reduce_dim": 8, "drop_rate": 0.1}}}
+    trainer = Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu")
+    trainer.train_loop()
+    assert _losses(trainer) and np.isfinite(_losses(trainer)).all()
+    assert int(trainer.method.emb_func.layer4[0].num_batches_tracked) == 2  # 2 epochs x 1
 
 
 def test_chip_training_cell_is_the_shipped_config_cut_to_size(tmp_path):
