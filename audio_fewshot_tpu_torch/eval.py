@@ -84,6 +84,26 @@ SLICE_MODELS.update({
         ("DSN", "dsn", {"discriminative": True}, _RESNET12),
         ("FRN", "frn", None, _RESNET12_MAP),
         ("CAN", "can", {"scale_cls": 7, "num_classes": 25}, _RESNET12_MAP))})
+# CPEANet on the class-aware vit_tiny (73 tokens of 192 for a [1, 128, 157]
+# segment), and the meta heads on config/backbones/Conv64F.yaml (is_flatten:
+# the 1600 features of the logits head); MAML's config trains 2 episodes a step
+_CONV64F = SLICE_MODELS["ProtoNet"]["backbone"]
+SLICE_MODELS.update({
+    "CPEANet": {"classifier": {"name": "CPEANet", "kwargs": {"in_dim": 192}},
+                "backbone": {"name": "vit_tiny", "kwargs": {"patch_size": 16, "num_channels": 1}},
+                "tag": "cpea_5shot_iid_seed0"},
+    "R2D2": {"classifier": {"name": "R2D2", "kwargs": None}, "backbone": _CONV64F,
+             "tag": "r2d2_5shot_iid_seed0"},
+    "MAML": {"classifier": {"name": "MAML", "kwargs": {
+        "inner_param": {"lr": 0.01, "train_iter": 5, "test_iter": 10}}},
+        "backbone": _CONV64F, "tag": "maml_5shot_iid_seed0", "episode_size": 2},
+    "ANIL": {"classifier": {"name": "ANIL", "kwargs": {
+        "inner_param": {"lr": 0.01, "train_iter": 5, "test_iter": 10}}},
+        "backbone": _CONV64F, "tag": "anil_5shot_iid_seed0"},
+    "BOIL": {"classifier": {"name": "BOIL", "kwargs": {
+        "inner_param": {"extractor_lr": 0.01, "classifier_lr": 0.01},
+        "testing_method": "NIL"}}, "backbone": _CONV64F, "tag": "boil_5shot_iid_seed0"},
+})
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
@@ -95,8 +115,9 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     (resnet12Bdc, ``reduce_dim`` 64); ``"ProtoNet"``:
     ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F with the 64 → 1600
     logits head); a Conv64F metric head of ``SLICE_MODELS`` (DN4, ADM,
-    ADM_KL, ConvMNet, ATLNet, MCL, RelationNet) or a resnet12 head
-    (MetaBaseline, MetaBaselineKendall, FEAT, DSN, FRN, CAN): its shipped
+    ADM_KL, ConvMNet, ATLNet, MCL, RelationNet), a resnet12 head
+    (MetaBaseline, MetaBaselineKendall, FEAT, DSN, FRN, CAN), CPEANet on
+    vit_tiny or a meta head on Conv64F (R2D2, MAML, ANIL, BOIL): its shipped
     ``*_5shot_iid_seed0.yaml``.  Each with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16

@@ -55,15 +55,30 @@ def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
     """``(c, h, w)`` of the backbone's output map for the config's segments.
     torch infers no shapes: heads that declare ``needs_map_shape`` (ConvMNet's
     scorer, ATLNet's transform, RelationNet's ``fc1``, FEAT's attention width,
-    CAN's bottleneck) get it at construction, where flax sized them at init
+    CAN's bottleneck, CPEA's ``fc2`` over the ViT's ``(tokens, dim)``) get it
+    at construction, where flax sized them at init
     from a traced map."""
     from ..data.dataset import segment_shape
 
     if not hasattr(emb_func, "map_shape"):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
-            "states no output map shape yet (the port has it for Conv64F and resnet12)")
+            "states no output map shape yet (the port has it for Conv64F, resnet12 and the "
+            "ViTs)")
     return tuple(emb_func.map_shape(segment_shape(config)))
+
+
+def _feature_dim(config: Dict[str, Any], emb_func: torch.nn.Module) -> int:
+    """The width of the backbone's flat features for the config's segments,
+    for heads that declare ``needs_feat_dim`` (the MAML family's Linear
+    head, which flax sized at init)."""
+    from ..data.dataset import segment_shape
+
+    if not hasattr(emb_func, "feature_dim"):
+        raise NotImplementedError(
+            f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
+            "states no flat feature width yet (the port has it for Conv64F)")
+    return int(emb_func.feature_dim(segment_shape(config)))
 
 
 def build_method(config: Dict[str, Any]) -> MethodBase:
@@ -87,6 +102,8 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     cls_kwargs["emb_func"] = _build_backbone(config, cls_factory)
     if getattr(cls_factory, "needs_map_shape", False):
         cls_kwargs["map_shape"] = _map_shape(config, cls_kwargs["emb_func"])
+    if getattr(cls_factory, "needs_feat_dim", False):
+        cls_kwargs.setdefault("feat_dim", _feature_dim(config, cls_kwargs["emb_func"]))
     # episode-geometry kwargs, as the reference passes to every classifier
     for key, val in (
         ("way_num", config.get("way_num")),

@@ -84,6 +84,14 @@ class ConvNF(nn.Module):
                              "a local-descriptor head needs is_flatten: false")
         return (self.layer4[0].out_channels,) + self.pooled_hw(*spec_shape[-2:])
 
+    def feature_dim(self, spec_shape: Sequence[int]) -> int:
+        """The width of a ``spec_shape`` segment's features flattened: the
+        logits head's output with ``is_flatten``, else c·h·w of the map."""
+        if self.is_flatten:
+            return self.logits[2].out_features
+        c, h, w = self.map_shape(spec_shape)
+        return c * h * w
+
     def forward(self, x: torch.Tensor, sample_mask: Optional[torch.Tensor] = None):
         n = x.shape[0]
         h, w = self.pooled_hw(*x.shape[-2:])

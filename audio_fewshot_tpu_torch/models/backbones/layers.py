@@ -29,6 +29,14 @@ class Conv2d(nn.Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose float32 weight is cast to the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class _FlaxBatchNorm:
     """Train-mode statistics as flax takes them, for ``BatchNorm`` and
     ``BatchNorm1d``.

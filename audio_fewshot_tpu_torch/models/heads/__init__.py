@@ -2,5 +2,5 @@
 
 # register the classifiers
 from . import (  # noqa: F401
-    atl_net, can, deepbdc, dn4, dsn, feat, frn, kendall, local_metrics, mcl, meta_baseline,
-    proto_net, relation_net)
+    atl_net, can, cpea, deepbdc, dn4, dsn, feat, frn, kendall, local_metrics, maml, mcl,
+    meta_baseline, proto_net, r2d2, relation_net)

@@ -6,8 +6,7 @@ support maps forms a bipartite graph with row-softmax transition matrices in
 both directions; the Katz centrality ``((I − αT)⁻¹ − I)·1`` of the support
 nodes, summed per class, is the prediction.  One batched ``torch.linalg.solve``
 over the ``[E, G]`` systems of size way·hw + hw, in float32.
-``katz_query_mask`` (the query nodes' centrality) serves only R2D2MCL and is
-not ported yet.
+``katz_query_mask`` (the query nodes' centrality) serves R2D2MCL.
 """
 
 from __future__ import annotations
@@ -59,6 +58,16 @@ def mcl_logits(query_feat: torch.Tensor, support_feat: torch.Tensor, way: int, s
     sup_katz = sup_katz / sup_katz.sum(dim=-1, keepdim=True).clamp(min=1e-12)
     e, g = s_mat.shape[:2]
     return sup_katz.reshape(e, g, way, hw).sum(dim=-1)
+
+
+def katz_query_mask(query_feat: torch.Tensor, support_feat: torch.Tensor, way: int, shot: int,
+                    katz_factor: float, gamma: float, gamma2: float) -> torch.Tensor:
+    """The query nodes' Katz centrality, normalised to sum 1 over each
+    query's positions: ``[E, G, h·w]`` weights (R2D2MCL's query pooling)."""
+    hw = query_feat.shape[-2] * query_feat.shape[-1]
+    s_mat = bipartite_similarity(query_feat, support_feat, way, shot)
+    q_katz = katz_vector(s_mat, katz_factor, gamma, gamma2)[..., way * hw:]
+    return q_katz / q_katz.sum(dim=-1, keepdim=True).clamp(min=1e-12)
 
 
 @CLASSIFIERS.register("MCL")

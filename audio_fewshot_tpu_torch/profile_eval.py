@@ -58,7 +58,8 @@ def report(prof, wall_us: float, header: str) -> None:
     by_cat = defaultdict(float)
     kernels = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # a user annotation (``Optimizer.step#Adam.step``) spans kernels: not kernel time
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         us = evt.self_device_time_total
         kernels.append((us, evt.count, evt.key))
@@ -84,6 +85,7 @@ def main(argv=None) -> int:
     cfg = slice_config(test_episode=16 * args.steps, test_epoch=1, classifier=args.classifier)
     test = Test(0, cfg, None, device="cuda")
     batches = list(test.test_loader[0].epoch(0))
+    torch.set_grad_enabled(False)  # as ``Test.test_loop`` runs its steps
     test._eval_step(batches[0]).cpu()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -4,7 +4,8 @@
 
 Builds a training cell of ``train.slice_config`` (``--classifier DeepBDC``,
 the default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; either
-at [1, 128, 157] segments, one 5-way 5-shot 10-query episode a step, bf16,
+or any head of ``eval.SLICE_MODELS``; at [1, 128, 157] segments, one 5-way
+5-shot 10-query episode a step (MAML's config: two), bf16,
 Adam, augmentation on) through ``Trainer``, runs a few warm-up steps, then
 ``--steps`` train steps under ``torch.profiler`` (each as the train loop
 runs it: batch to the device, augmentation, loss, backward, optimizer step,
@@ -40,7 +41,8 @@ def main(argv=None) -> int:
         return 1
     with tempfile.TemporaryDirectory() as result_root:
         cfg = slice_config(result_root, classifier=args.classifier)
-        cfg["train_episode"] = WARMUP_STEPS + args.steps
+        episode_size = int(cfg.get("episode_size", 1))  # MAML's config: 2 a step
+        cfg["train_episode"] = (WARMUP_STEPS + args.steps) * episode_size
         trainer = Trainer(0, cfg, device="cuda")
         trainer.method.train()
         gen = torch.Generator().manual_seed(0)
@@ -61,7 +63,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_us = (time.time() - t0) * 1e6
     n = len(batches) - WARMUP_STEPS
-    report(prof, wall_us, f"{args.classifier}: {n} train steps of 75 segments "
+    report(prof, wall_us, f"{args.classifier}: {n} train steps of {75 * episode_size} segments "
            f"({wall_us / 1e3 / n:.1f} ms/step)")
     return 0
 

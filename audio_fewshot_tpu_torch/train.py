@@ -48,11 +48,11 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
     ``classifier="DeepBDC"``: ``config/deepbdc/deepbdc_5shot_iid_seed0.yaml``
     (resnet12Bdc, planes 64/160/320/640, ``reduce_dim`` 64);
     ``"ProtoNet"``: ``config/proto/proto_5shot_iid_seed0.yaml`` (Conv64F
-    with ``is_flatten``: the 64 → 1600 logits head); a Conv64F or resnet12
-    metric head of ``eval.SLICE_MODELS``: its shipped
-    ``*_5shot_iid_seed0.yaml``.  Each with
+    with ``is_flatten``: the 64 → 1600 logits head); any other head of
+    ``eval.SLICE_MODELS``: its shipped ``*_5shot_iid_seed0.yaml``.  Each with
     its headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
-    ``[1, 128, 157]`` segments, one episode a step (75 segments), bf16
+    ``[1, 128, 157]`` segments, one episode a step (75 segments; MAML's
+    config: two), bf16
     backbone and fp32 head, Adam at lr 0.005 with CosineAnnealingLR(T_max
     100), ``augment: true`` with the Clean mean/std.  Cut to size: ``epoch``
     30 → 2, ``train_episode`` 1000 → 40, ``test_episode`` (val and test) 600

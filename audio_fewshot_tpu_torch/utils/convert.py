@@ -1,7 +1,8 @@
 """JAX package variables → the port's state dict.
 
 The port's own copy of ``_invert_convnf`` / ``_invert_resnet12`` /
-``_invert_resnet12bdc`` in ``audio_fewshot_tpu/utils/torch_convert.py``, and
+``_invert_resnet12bdc`` / ``_invert_vit_class_aware`` in
+``audio_fewshot_tpu/utils/torch_convert.py``, and
 the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` (which have
 no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
 [in, out] → Linear [out, in]; BatchNorm ``scale``/``bias`` (params) and
@@ -10,9 +11,10 @@ no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
 DropBlock ramp counters (``batch_stats[layer{3,4}]["num_batches_tracked"]``
 → ``layer{3,4}.0.num_batches_tracked``, int64) where the variables hold
 them, which the JAX package's inverter drops.  The heads with parameters
-(ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN) map onto
-the reference torch names, the port's copy of
-``invert_{adm,convmnet,atlnet,relationnet,metabaseline,feat,frn,can}_head_params``
+(ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN, CPEANet,
+R2D2 and R2D2MCL, the MAML family) map onto the reference torch names, the
+port's copy of ``invert_{adm,convmnet,atlnet,relationnet,metabaseline,feat,
+frn,can,cpea,r2d2,maml}_head_params``
 in ``tools/cross_framework_parity.py``.  The variables arrive as nested
 dicts of numpy arrays, so this module needs no JAX.
 """
@@ -100,6 +102,39 @@ def _r2d2emb(params, stats, state) -> None:
             stats[f"{blk}_bn"]["BatchNorm_0"])
 
 
+def _vit(params, stats, state) -> None:
+    """The class-aware ViT: flax ``patch_embed`` (HWIO) → ``patch_embed.proj``
+    (OIHW); ``block{i}``'s MHA ``query`` / ``key`` / ``value`` head-split
+    kernels ``[dim, heads, hd]`` → the packed ``blocks.{i}.attn.qkv`` rows
+    (q | k | v), ``out`` ``[heads, hd, dim]`` → ``attn.proj``; ``fc1`` /
+    ``fc2`` → ``mlp.fc1`` / ``mlp.fc2``; LayerNorm ``scale`` → ``weight``."""
+    state["patch_embed.proj.weight"] = _conv(params["patch_embed"]["kernel"])
+    state["patch_embed.proj.bias"] = np.asarray(params["patch_embed"]["bias"])
+    state["cls_token"] = np.asarray(params["cls_token"])
+    state["pos_embed"] = np.asarray(params["pos_embed"])
+    if "norm" in params:
+        state["norm.weight"] = np.asarray(params["norm"]["scale"])
+        state["norm.bias"] = np.asarray(params["norm"]["bias"])
+    blocks = sorted((k for k in params if k.startswith("block")), key=lambda k: int(k[5:]))
+    for i, name in enumerate(blocks):
+        b, pre = params[name], f"blocks.{i}"
+        dim = np.asarray(b["fc2"]["kernel"]).shape[-1]
+        for ln in ("norm1", "norm2"):
+            state[f"{pre}.{ln}.weight"] = np.asarray(b[ln]["scale"])
+            state[f"{pre}.{ln}.bias"] = np.asarray(b[ln]["bias"])
+        attn = b["attn"]
+        state[f"{pre}.attn.qkv.weight"] = np.concatenate(
+            [_linear(np.asarray(attn[k]["kernel"]).reshape(dim, dim))
+             for k in ("query", "key", "value")])
+        state[f"{pre}.attn.qkv.bias"] = np.concatenate(
+            [np.asarray(attn[k]["bias"]).reshape(dim) for k in ("query", "key", "value")])
+        state[f"{pre}.attn.proj.weight"] = _linear(np.asarray(attn["out"]["kernel"]).reshape(dim, dim))
+        state[f"{pre}.attn.proj.bias"] = np.asarray(attn["out"]["bias"])
+        for fc in ("fc1", "fc2"):
+            state[f"{pre}.mlp.{fc}.weight"] = _linear(b[fc]["kernel"])
+            state[f"{pre}.mlp.{fc}.bias"] = np.asarray(b[fc]["bias"])
+
+
 _CONVERTERS = {
     "Conv64F": _convnf,
     "Conv32F": _convnf,
@@ -108,6 +143,10 @@ _CONVERTERS = {
     "resnet12": _resnet12,
     "resnet12woLSC": _resnet12,  # no downsample in stage 4
     "resnet12Bdc": _resnet12bdc,
+    "vit_tiny": _vit,
+    "vit_small": _vit,
+    "VisionTransformer": _vit,
+    "ViT": _vit,
 }
 
 
@@ -220,6 +259,35 @@ def _can_head(params, stats, state) -> None:
     state["cam_layer.classifier.bias"] = np.asarray(params["global_fc"]["bias"])
 
 
+def _cpea_head(params, stats, state) -> None:
+    """CPEA: ``fc1_hidden`` / ``fc1_out`` / ``fc_norm1`` / ``fc2_hidden`` /
+    ``fc2_out`` → ``CPEA.fc1.fc1`` / ``CPEA.fc1.fc2`` / ``CPEA.fc_norm1`` /
+    ``CPEA.fc2.fc1`` / ``CPEA.fc2.fc2``."""
+    head = params["head"]
+    for ours, theirs in (("fc1_hidden", "fc1.fc1"), ("fc1_out", "fc1.fc2"),
+                         ("fc2_hidden", "fc2.fc1"), ("fc2_out", "fc2.fc2")):
+        state[f"CPEA.{theirs}.weight"] = _linear(head[ours]["kernel"])
+        state[f"CPEA.{theirs}.bias"] = np.asarray(head[ours]["bias"])
+    state["CPEA.fc_norm1.weight"] = np.asarray(head["fc_norm1"]["scale"])
+    state["CPEA.fc_norm1.bias"] = np.asarray(head["fc_norm1"]["bias"])
+
+
+def _r2d2_head(params, stats, state) -> None:
+    """R2D2 / R2D2MCL: the scalars ``alpha`` / ``beta`` / ``gamma`` →
+    ``classifier.alpha`` / ``beta`` / ``gamma`` [1]."""
+    head = params["head"]
+    for k in ("alpha", "beta", "gamma"):
+        state[f"classifier.{k}"] = np.asarray(head[k]).reshape(1)
+
+
+def _maml_head(params, stats, state) -> None:
+    """MAML / ANIL / BOIL: the ``classifier`` Dense (beside ``emb_func``, not
+    under ``head``) → ``classifier.layers.0``."""
+    head = params["classifier"]
+    state["classifier.layers.0.weight"] = _linear(head["kernel"])
+    state["classifier.layers.0.bias"] = np.asarray(head["bias"])
+
+
 _HEAD_CONVERTERS = {
     "ADM": _adm_head,
     "ConvMNet": _convmnet_head,
@@ -229,6 +297,12 @@ _HEAD_CONVERTERS = {
     "FEAT": _feat_head,
     "FRN": _frn_head,
     "CAN": _can_head,
+    "CPEANet": _cpea_head,
+    "R2D2": _r2d2_head,
+    "R2D2MCL": _r2d2_head,
+    "MAML": _maml_head,
+    "ANIL": _maml_head,
+    "BOIL": _maml_head,
 }
 
 
@@ -236,8 +310,8 @@ def head_state_dict_from_jax(variables: Dict[str, Any],
                              classifier: str) -> Dict[str, np.ndarray]:
     """The head's entries of a method's state dict (method-level keys, the
     reference torch names) from the JAX package's ``params["head"]`` and
-    ``batch_stats["head"]`` (CAN: its ``cam`` and ``global_fc`` modules);
-    empty for a head without parameters."""
+    ``batch_stats["head"]`` (CAN: its ``cam`` and ``global_fc`` modules; the
+    MAML family: its ``classifier``); empty for a head without parameters."""
     state: Dict[str, np.ndarray] = {}
     if classifier in _HEAD_CONVERTERS:
         _HEAD_CONVERTERS[classifier](variables["params"], variables.get("batch_stats", {}), state)

@@ -48,7 +48,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-16, which run before it);
+   (printed after phases 9-18, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -96,6 +96,20 @@ Phases (any failure ends the script with a non-zero exit code):
    end of a shipped 30 x 1000-episode run): the share each DropBlock drops
    against 1 - keep; and one more epoch through resume, which must carry the
    counters on.
+17. CPEANet on the class-aware vit_tiny (``cpea_5shot_iid_seed0`` at full
+   width: 73 tokens of 192, 12 blocks, bf16 backbone, fp32 head) through
+   ``Test`` at phase 12's cut (eval eps/s of each epoch, ms a step, peak
+   memory, BDC launches 0), one float32 episode's logits on the card against
+   the CPU (with cuDNN's deterministic algorithms, in phase 18 too), and one
+   training epoch at phase 13's cut;
+18. R2D2, MAML, ANIL and BOIL, each its shipped ``*_5shot_iid_seed0`` on
+   Conv64F's 1600 flat features, the same way (MAML and ANIL adapt 10 inner
+   steps an eval episode, BOIL evaluates NIL; MAML trains second order, two
+   episodes a step); for the three MAML-family heads, on the card under
+   ``no_grad`` as ``Test`` runs them, the adapted logits must differ from
+   the unadapted ones (BOIL: one step against none) and no parameter may
+   hold a ``.grad``; and R2D2MCL (no shipped config) on MCL's Conv64F map:
+   one float32 episode card vs CPU.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -103,6 +117,7 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import json
 import math
@@ -150,6 +165,11 @@ KENDALL_CPU_QUERIES = 16
 # Kendall's training recomputes its pair terms in the backward: its peak
 # stays within this many GiB of MetaBaseline's
 KENDALL_PEAK_MARGIN_GIB = 4.0
+# phase 18: the meta heads on Conv64F's flat features; the MAML family's
+# eval logits must move by more than this (relative to their scale) when
+# they adapt
+META_HEADS = ("R2D2", "MAML", "ANIL", "BOIL")
+ADAPT_MIN_REL = 1e-3
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
 # Recorded, not measured by this script: the kernel's time before its redesign
@@ -642,6 +662,151 @@ def resnet12_phases(g: int) -> None:
         del trainer, resumed
     torch.cuda.empty_cache()
     print(f"[resnet12-train] phase 16 wall {time.time() - t_phase:.1f} s", flush=True)
+    print(flush=True)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for a card-vs-CPU check of phases
+    17-18.  The default convolution gradients accumulate in an order that
+    varies between runs; MAML's 10 inner steps amplify that through conv1's
+    weight gradient (a sum over 502 k positions that cancels to ~0.5 % of
+    its terms): its fp32 logits read 2.0e-4 to 4.8e-4 from the CPU's over
+    three runs on one NVIDIA H100, 1.58e-5 in every run with these
+    algorithms."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def eval_and_train(head: str, label: str, what: str, g: int) -> None:
+    """One head's eval cell through ``Test`` at ``EVAL_CUT`` (BDC launches
+    0), one float32 episode card vs CPU, one training epoch at
+    ``HEAD_TRAIN_CUT`` (BDC launches 0).  ``what``: the model, for the log."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hcfg = slice_config(classifier=head, **EVAL_CUT)
+    eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
+    print(f"[{label}-eval] {hcfg['tag']} at full width ({what}), bf16 backbone, fp32 head, "
+          f"{hcfg['test_episode_size']} episodes a step, {hcfg['test_epoch']} epochs of "
+          f"{hcfg['test_episode']} test episodes: accuracy {acc:.3f}, eval eps/s by epoch "
+          f"{[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory {peak_gib:.2f} GiB, "
+          f"BDC launches {bdc_launches} (expected 0)", flush=True)
+    if not math.isfinite(acc) or any(bdc_launches):
+        raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {bdc_launches}")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
+    print(f"[{label}-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
+          f"agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError(f"float32 {head} card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as result_root:
+        hcfg = train.slice_config(result_root, classifier=head, **HEAD_TRAIN_CUT)
+        rows, peak_gib, bdc_launches = run_trainer(hcfg)
+    for r in rows:
+        print(f"[{label}-train] {hcfg['tag']} at full width, bf16, augment on, "
+              f"{hcfg.get('episode_size', 1)} episode(s) a step, epoch {r['epoch']} of "
+              f"{r['train_eps_count']} steps: {r['train_eps']:.2f} train eps/s, step "
+              f"{r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+              f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f}, test acc "
+              f"{r['test_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches "
+              f"{bdc_launches} (expected 0)")
+    if any(bdc_launches):
+        raise AssertionError(f"{head} training: BDC launches {bdc_launches}")
+    torch.cuda.empty_cache()
+    print(f"[{label}] {head}: {time.time() - t0:.1f} s", flush=True)
+
+
+def adaptation_check(head: str) -> None:
+    """On the card, as ``Test`` holds the method (eval mode, no parameter
+    needing grad, ``no_grad``): the adapted logits of two float32 episodes
+    against the unadapted ones (MAML, ANIL: ``test_iter`` steps against 0;
+    BOIL: its one step against none, and NIL finite), and no ``.grad``
+    written."""
+    import torch
+
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.models import build_method, eval_setting
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = slice_config(classifier=head, precision="fp32")
+    init_seed(int(cfg["seed"]))
+    method = build_method(cfg).to("cuda").eval().requires_grad_(False)
+    setting = eval_setting(cfg)
+    full = next(iter(get_dataloader(cfg, "test")[0].epoch(0)))
+    batch = full.replace(**{k: getattr(full, k)[:2] for k in (
+        "support", "query", "query_clip", "query_mask", "support_target",
+        "query_target")}, global_target=None).to("cuda")
+    steps = 1 if head == "BOIL" else method.test_iter
+    with torch.no_grad():
+        adapted = method._run(batch, setting, steps)
+        unadapted = method._run(batch, setting, 0)
+        nil = method(batch, setting) if head == "BOIL" else adapted
+    moved = rel_err(adapted, unadapted)
+    grads = [n for n, p in method.named_parameters() if p.grad is not None]
+    print(f"[meta-adapt] {head} under no_grad (eval mode, no parameter needing grad): "
+          f"{steps} inner step(s) moved the logits {tuple(adapted.shape)} by "
+          f"max|Δ|/max|logit| {moved:.3e} from the unadapted ones (must exceed "
+          f"{ADAPT_MIN_REL:g}); parameters holding a .grad: {len(grads)} (expected 0)"
+          + ("; NIL logits finite" if head == "BOIL" else ""))
+    if not (moved > ADAPT_MIN_REL and torch.isfinite(adapted).all()
+            and torch.isfinite(nil).all()) or grads:
+        raise AssertionError(f"{head}: the eval step did not adapt ({moved}) or wrote grads")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def vit_and_meta_phases(g: int) -> None:
+    """Phases 17-18: CPEANet on vit_tiny; R2D2, MAML, ANIL and BOIL on
+    Conv64F, the MAML family's adaptation under ``no_grad``, and R2D2MCL.
+    ``g``: the query segments of a card-vs-CPU episode."""
+    import torch
+
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    # -- 17. CPEANet on vit_tiny -----------------------------------------------------------
+    t_phase = time.time()
+    eval_and_train("CPEANet", "cpea", "vit_tiny: 73 tokens of 192, 12 blocks; CPEA over "
+                   "72 x 72 patch similarities", g)
+    print(f"[cpea] phase 17 wall {time.time() - t_phase:.1f} s", flush=True)
+    print(flush=True)
+
+    # -- 18. R2D2 and the MAML family on Conv64F ------------------------------------------
+    t_phase = time.time()
+    for head in META_HEADS:
+        eval_and_train(head, "meta", "Conv64F's 1600 flat features", g)
+        if head != "R2D2":
+            adaptation_check(head)
+    mcfg = slice_config(classifier="MCL", precision="fp32")
+    mcfg["classifier"] = {"name": "R2D2MCL", "kwargs": None}
+    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(mcfg, g)
+    print(f"[meta] R2D2MCL, NO shipped config (its JAX defaults: katz 0.5, gamma 20, gamma2 "
+          f"10, on MCL's Conv64F [64, 4, 5] map): fp32 segment logits {shape}: card vs CPU "
+          f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
+          f"{agree:.4f}")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError("float32 R2D2MCL card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    print(f"[meta] phase 18 wall {time.time() - t_phase:.1f} s", flush=True)
     print(flush=True)
 
 
@@ -1155,6 +1320,7 @@ def main() -> int:
 
     metric_and_bpa_phases(ecfg, expected, g)
     resnet12_phases(g)
+    vit_and_meta_phases(g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]
