@@ -104,6 +104,26 @@ SLICE_MODELS.update({
         "inner_param": {"extractor_lr": 0.01, "classifier_lr": 0.01},
         "testing_method": "NIL"}}, "backbone": _CONV64F, "tag": "boil_5shot_iid_seed0"},
 })
+# MeTAL, LEO, VERSA and DMatchingNet (config/ifsl) on Conv64F's 1600 flat
+# features, MTL on the plain resnet12's 12800
+SLICE_MODELS.update({
+    "MeTAL": {"classifier": {"name": "MeTAL", "kwargs": {
+        "inner_param": {"lr": 0.01, "train_iter": 5, "test_iter": 5}}},
+        "backbone": _CONV64F, "tag": "metal_5shot_iid_seed0"},
+    "MTL": {"classifier": {"name": "MTL", "kwargs": {"inner_param": {"iter": 100, "lr": 0.01}}},
+            "backbone": _RESNET12, "tag": "mtl_5shot_iid_seed0"},
+    "LEO": {"classifier": {"name": "LEO", "kwargs": {
+        "hid_dim": 64, "kl_weight": 0.001, "encoder_penalty_weight": 1.0e-09,
+        "orthogonality_penalty_weight": 0.001,
+        "inner_para": {"iter": 5, "lr": 0.01, "finetune_iter": 5, "finetune_lr": 0.01}}},
+        "backbone": _CONV64F, "tag": "leo_5shot_iid_seed0"},
+    "VERSA": {"classifier": {"name": "VERSA", "kwargs": {
+        "sample_num": 10, "d_theta": 256, "drop_rate": 0.5}},
+        "backbone": _CONV64F, "tag": "versa_5shot_iid_seed0"},
+    "DMatchingNet": {"classifier": {"name": "DMatchingNet", "kwargs": {
+        "ifsl_param": {"n_splits": 4, "class_num": 25, "temp": 10.0}}},
+        "backbone": _CONV64F, "tag": "ifsl_5shot_iid_seed0"},
+})
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
@@ -117,7 +137,8 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     logits head); a Conv64F metric head of ``SLICE_MODELS`` (DN4, ADM,
     ADM_KL, ConvMNet, ATLNet, MCL, RelationNet), a resnet12 head
     (MetaBaseline, MetaBaselineKendall, FEAT, DSN, FRN, CAN), CPEANet on
-    vit_tiny or a meta head on Conv64F (R2D2, MAML, ANIL, BOIL): its shipped
+    vit_tiny, a meta head on Conv64F (R2D2, MAML, ANIL, BOIL, MeTAL, LEO,
+    VERSA, DMatchingNet) or MTL on resnet12: its shipped
     ``*_5shot_iid_seed0.yaml``.  Each with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16

@@ -70,14 +70,15 @@ def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
 
 def _feature_dim(config: Dict[str, Any], emb_func: torch.nn.Module) -> int:
     """The width of the backbone's flat features for the config's segments,
-    for heads that declare ``needs_feat_dim`` (the MAML family's Linear
-    head, which flax sized at init)."""
+    for heads that declare ``needs_feat_dim`` (the Linear heads of the MAML
+    family, MeTAL and MTL, LEO's decoder, VERSA's trunk, DMatchingNet's
+    splits and pretrained classifier: flax sized them at init)."""
     from ..data.dataset import segment_shape
 
     if not hasattr(emb_func, "feature_dim"):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
-            "states no flat feature width yet (the port has it for Conv64F)")
+            "states no flat feature width yet (the port has it for Conv64F and resnet12)")
     return int(emb_func.feature_dim(segment_shape(config)))
 
 

@@ -66,11 +66,14 @@ class _FlaxBatchNorm:
         else:
             out, mean, var = self._masked(x, mask)
         if update:
-            with torch.no_grad():
-                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
-                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
-                self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         return out
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+        self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        self.num_batches_tracked.add_(1)
 
     def _masked(self, x: torch.Tensor, mask: torch.Tensor):
         """Output, mean and biased variance over the rows where ``mask``, in
@@ -149,6 +152,22 @@ class Dropout(_SeededNoise):
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"
+
+
+class GaussianNoise(_SeededNoise):
+    """Standard normal draws for a head's sampler (LEO's latents and
+    weights, VERSA's logits), from the module's own generator
+    (``_SeededNoise``).  ``restart`` rewinds the generator to its seed: the
+    heads call it at the start of each eval forward, so eval draws the same
+    noise every call, as the JAX package samples eval logits from
+    ``PRNGKey(0)``."""
+
+    def restart(self) -> None:
+        self.generator = None
+
+    def draw(self, shape, like: torch.Tensor) -> torch.Tensor:
+        return torch.randn(shape, generator=self._generator(like), device=like.device,
+                           dtype=like.dtype)
 
 
 def dropblock_mask(seeds: torch.Tensor, block_size: int) -> torch.Tensor:

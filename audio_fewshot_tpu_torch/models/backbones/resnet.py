@@ -162,6 +162,12 @@ class ResNet12(nn.Module):
             h, w = h - min(5, h) + 1, w - min(5, w) + 1
         return (self.layer4[0].conv3.out_channels, h, w)
 
+    def feature_dim(self, spec_shape: Sequence[int]) -> int:
+        """The width of a ``spec_shape`` segment's features flattened, c·h·w
+        of ``map_shape`` (MTL's base learner)."""
+        c, h, w = self.map_shape(spec_shape)
+        return c * h * w
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x)))).float()

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import inspect
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +54,7 @@ from torch.func import functional_call
 from ...episode import EpisodeBatch, segment_targets
 from ...registry import CLASSIFIERS
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
-from ..init import lecun_normal_
+from ..init import dense
 
 Params = Dict[str, torch.Tensor]
 _EMB = "emb_func."
@@ -64,9 +64,7 @@ _HEAD_W, _HEAD_B = "classifier.layers.0.weight", "classifier.layers.0.bias"
 class LinearHead(nn.Module):
     def __init__(self, feat_dim: int, way: int):
         super().__init__()
-        self.layers = nn.Sequential(nn.Linear(feat_dim, way))
-        lecun_normal_(self.layers[0].weight)
-        nn.init.zeros_(self.layers[0].bias)
+        self.layers = nn.Sequential(dense(feat_dim, way))
 
 
 @contextlib.contextmanager
@@ -84,6 +82,57 @@ def _records_outer_graph(params) -> bool:
     else (``no_grad``, or parameters that need no grad, as ``Test`` holds
     them) the inner loop steps detached copies."""
     return torch.is_grad_enabled() and any(p.requires_grad for p in params)
+
+
+def sgd_steps(tensors: Sequence[torch.Tensor], objective: Callable, n_steps: int, lr: float,
+              second_order: bool = True) -> List[torch.Tensor]:
+    """``tensors`` after ``n_steps`` plain SGD steps at ``lr`` on
+    ``objective(tensors, step)``, a scalar.  The head-only inner loops batch
+    their episodes: each tensor carries a leading episode axis and the
+    objective is the sum of the episodes' losses, so each episode's slice
+    gets its own gradient.  Where the caller records autograd through the
+    tensors, the steps stay in its graph (second order, or first order with
+    ``second_order=False``); else they step detached copies."""
+    outer = _records_outer_graph(tensors)
+    tensors = list(tensors)
+    if not outer:
+        tensors = [t.detach().requires_grad_() for t in tensors]
+    with torch.enable_grad():
+        for step in range(n_steps):
+            grads = torch.autograd.grad(objective(tensors, step), tensors,
+                                        create_graph=outer and second_order)
+            tensors = [t - lr * g for t, g in zip(tensors, grads)]
+            if not outer:
+                tensors = [t.detach().requires_grad_() for t in tensors]
+    return tensors
+
+
+def linear_logits(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-episode Linear heads: ``x`` [E, N, D], ``w`` [E, way, D], ``b``
+    [E, way] → [E, N, way]."""
+    return torch.baddbmm(b[:, None], x, w.transpose(1, 2))
+
+
+def episode_cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``[E]``: each episode's mean cross-entropy of ``logits`` [E, N, way]."""
+    e = logits.shape[0]
+    return F.cross_entropy(logits.flatten(0, 1), target.reshape(-1).long(),
+                           reduction="none").view(e, -1).mean(dim=1)
+
+
+def adapt_linear_head(weight: torch.Tensor, bias: torch.Tensor, sup_f: torch.Tensor,
+                      sup_y: torch.Tensor, n_steps: int, lr: float,
+                      second_order: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Linear head ``(weight [way, D], bias [way])`` copied to each of the
+    ``E`` episodes of ``sup_f`` [E, N, D] and stepped on its own support
+    cross-entropy (ANIL, MTL): ``([E, way, D], [E, way])``."""
+    e = sup_f.shape[0]
+
+    def support_loss(t, step):
+        return episode_cross_entropy(linear_logits(sup_f, *t), sup_y).sum()
+
+    return tuple(sgd_steps((weight.expand(e, -1, -1), bias.expand(e, -1)), support_loss,
+                           n_steps, lr, second_order))
 
 
 class MAMLBase(MethodBase):
@@ -184,23 +233,10 @@ class ANIL(MAMLBase):
     def _run(self, batch: EpisodeBatch, setting: EpisodeSetting, n_steps: int,
              second_order: bool = True) -> torch.Tensor:
         sup_f, qry_f = self.embed(batch)
-        e = sup_f.shape[0]
         head = self.classifier.layers[0]
-        outer = _records_outer_graph((head.weight, head.bias))
-        w, b = head.weight.expand(e, -1, -1), head.bias.expand(e, -1)
-        if not outer:
-            w, b = w.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
-        y = batch.support_target.long().reshape(-1)
-        with torch.enable_grad():
-            for _ in range(n_steps):
-                logits = torch.baddbmm(b[:, None], sup_f, w.transpose(1, 2))
-                loss = F.cross_entropy(logits.flatten(0, 1), y, reduction="none")
-                gw, gb = torch.autograd.grad(loss.view(e, -1).mean(dim=1).sum(), (w, b),
-                                             create_graph=outer and second_order)
-                w, b = w - self.inner_lr * gw, b - self.inner_lr * gb
-                if not outer:
-                    w, b = w.detach().requires_grad_(), b.detach().requires_grad_()
-        return torch.baddbmm(b[:, None], qry_f, w.transpose(1, 2))
+        w, b = adapt_linear_head(head.weight, head.bias, sup_f, batch.support_target, n_steps,
+                                 self.inner_lr, second_order)
+        return linear_logits(qry_f, w, b)
 
 
 BOIL_TEST_MODES = ("Directly", "Once_update", "NIL")

@@ -39,6 +39,16 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator = None) -> None:
     _truncated(w, 1.0 / fan_in, generator)
 
 
+def dense(in_dim: int, out_dim: int, bias: bool = True) -> nn.Linear:
+    """An ``nn.Linear`` drawn as flax's ``Dense``: lecun_normal kernel, zero
+    bias."""
+    layer = nn.Linear(in_dim, out_dim, bias=bias)
+    lecun_normal_(layer.weight)
+    if bias:
+        nn.init.zeros_(layer.bias)
+    return layer
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, init_type: str, generator: torch.Generator) -> None:
     """Redraw the weight of every Conv and Linear of ``model`` with the

@@ -77,7 +77,7 @@ class Trainer:
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         for key, item in (("profile_steps", "a torch.profiler window (Queue A item 10)"),
-                          ("featuring", "IFSL's featuring pass (Queue A item 7)")):
+                          ("featuring", "IFSL's featuring pass (Queue A item 8)")):
             if config.get(key) or (config.get("ifsl_pretrain_param") or {}).get(key):
                 raise NotImplementedError(f"{key}: {item} is not ported yet (ROADMAP)")
         if config.get("precision", "bf16") == "fp32":

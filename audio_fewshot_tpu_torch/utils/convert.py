@@ -12,10 +12,12 @@ DropBlock ramp counters (``batch_stats[layer{3,4}]["num_batches_tracked"]``
 → ``layer{3,4}.0.num_batches_tracked``, int64) where the variables hold
 them, which the JAX package's inverter drops.  The heads with parameters
 (ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN, CPEANet,
-R2D2 and R2D2MCL, the MAML family) map onto the reference torch names, the
-port's copy of ``invert_{adm,convmnet,atlnet,relationnet,metabaseline,feat,
-frn,can,cpea,r2d2,maml}_head_params``
-in ``tools/cross_framework_parity.py``.  The variables arrive as nested
+R2D2 and R2D2MCL, the MAML family, MTL, MeTAL, LEO, VERSA, DMatchingNet)
+map onto the reference torch names, the port's copy of ``invert_{adm,
+convmnet,atlnet,relationnet,metabaseline,feat,frn,can,cpea,r2d2,maml,mtl,
+leo,versa,dmatchingnet}_head_params``, ``invert_metal_per_step_params`` and
+``_invert_lstm_cell`` in ``tools/cross_framework_parity.py`` (MeTAL's
+default path has no reference counterpart: flax's names).  The variables arrive as nested
 dicts of numpy arrays, so this module needs no JAX.
 """
 
@@ -288,6 +290,104 @@ def _maml_head(params, stats, state) -> None:
     state["classifier.layers.0.bias"] = np.asarray(head["bias"])
 
 
+def _mtl_head(params, stats, state) -> None:
+    """MTL: the base learner's ``classifier.fc`` Dense →
+    ``base_learner.fc1_w`` [way, D] / ``fc1_b`` (the reference's ``vars.{0,1}``
+    alias the same tensors)."""
+    head = params["classifier"]["fc"]
+    state["base_learner.fc1_w"] = _linear(head["kernel"])
+    state["base_learner.fc1_b"] = np.asarray(head["bias"])
+
+
+def _linear_entries(state, key: str, dense: Dict, bias: bool = True) -> None:
+    state[key + ".weight"] = _linear(dense["kernel"])
+    if bias:
+        state[key + ".bias"] = np.asarray(dense["bias"])
+
+
+def _metal_head(params, stats, state) -> None:
+    """MeTAL: the ``classifier`` Dense as the MAML family's; the default
+    path's ``MetaLossNet`` s (``step_emb`` ``embedding`` → ``step_emb.weight``,
+    ``fc1`` / ``fc2``, flax's names: no reference counterpart); the per-step
+    path's stacked ``w1`` / ``b1`` / ``w2`` / ``b2`` [steps, …] →
+    ``layer_dict.step{i}.linear{1,2}.{weights,bias}`` and the adapters' →
+    ``loss_adapter.{i}.linear{1,2}.{weight,bias}``, ``{multiplier,offset}_bias``."""
+    _maml_head(params, stats, state)
+    for name in ("meta_loss", "meta_query_loss"):
+        sub = params[name]
+        if "w1" not in sub:
+            state[f"{name}.step_emb.weight"] = np.asarray(sub["step_emb"]["embedding"])
+            for fc in ("fc1", "fc2"):
+                _linear_entries(state, f"{name}.{fc}", sub[fc])
+            continue
+        for i in range(np.asarray(sub["w1"]).shape[0]):
+            pre = f"{name}.layer_dict.step{i}"
+            for j in (1, 2):
+                state[f"{pre}.linear{j}.weights"] = _linear(np.asarray(sub[f"w{j}"])[i])
+                state[f"{pre}.linear{j}.bias"] = np.asarray(sub[f"b{j}"])[i]
+        sub = params[f"{name}_adapter"]
+        for i in range(np.asarray(sub["w1"]).shape[0]):
+            pre = f"{name}_adapter.loss_adapter.{i}"
+            for j in (1, 2):
+                state[f"{pre}.linear{j}.weight"] = _linear(np.asarray(sub[f"w{j}"])[i])
+                state[f"{pre}.linear{j}.bias"] = np.asarray(sub[f"b{j}"])[i]
+            for k in ("multiplier_bias", "offset_bias"):
+                state[f"{pre}.{k}"] = np.asarray(sub[k])[i]
+
+
+def _leo_head(params, stats, state) -> None:
+    """LEO: ``encoder.encoder`` → ``encoder.encoder_func``, the bias-free
+    ``relation{i}`` → ``encoder.relation_net.{2i}``, ``decoder.decoder`` →
+    ``decoder.decoder_func``."""
+    enc = params["encoder"]
+    _linear_entries(state, "encoder.encoder_func", enc["encoder"])
+    for i in range(3):
+        _linear_entries(state, f"encoder.relation_net.{2 * i}", enc[f"relation{i}"], bias=False)
+    _linear_entries(state, "decoder.decoder_func", params["decoder"]["decoder"])
+
+
+def _versa_head(params, stats, state) -> None:
+    """VERSA: the trunk's ``h_dense`` / ``h_bn`` → ``h.0`` / ``h.1`` (its
+    running statistics too), the ψ predictors' ``Dense_{i}`` →
+    ``{weight,bias}_{mean,logvar}.layers.{2i}``."""
+    head = params["head"]
+    _linear_entries(state, "h.0", head["h_dense"])
+    _head_bn(state, "h.1", head["h_bn"]["BatchNorm_0"],
+             stats.get("head", {}).get("h_bn", {}).get("BatchNorm_0", {}))
+    for psi in ("weight_mean", "weight_logvar", "bias_mean", "bias_logvar"):
+        for i in range(3):
+            _linear_entries(state, f"{psi}.layers.{2 * i}", params["psi"][psi][f"Dense_{i}"])
+
+
+def _lstm_cell(tree: Dict):
+    """flax ``OptimizedLSTMCell`` → torch (weight_ih, weight_hh, bias_ih,
+    bias_hh), gates stacked i|f|g|o; flax's one bias per gate (on the hidden
+    kernels) → ``bias_ih``, ``bias_hh`` zero."""
+    w_ih = np.concatenate([_linear(tree[f"i{g}"]["kernel"]) for g in "ifgo"])
+    w_hh = np.concatenate([_linear(tree[f"h{g}"]["kernel"]) for g in "ifgo"])
+    b_ih = np.concatenate([np.asarray(tree[f"h{g}"]["bias"]) for g in "ifgo"])
+    return w_ih, w_hh, b_ih, np.zeros_like(b_ih)
+
+
+def _dmatchingnet_head(params, stats, state) -> None:
+    """DMatchingNet: ``pretrain_cls`` → ``utils.linear``; each split's
+    ``block{j}`` (``single``) or ``x_block{j}`` / ``d_block{j}`` →
+    ``blocks.{j}`` / ``x_blocks.{j}`` / ``d_blocks.{j}``: its forward and
+    reverse support LSTM cells (``OptimizedLSTMCell_0`` / ``_1``) →
+    ``G_encoder.*_l0`` / ``*_l0_reverse``, its FCE cell → ``FCE.lstmcell``."""
+    _linear_entries(state, "utils.linear", params["pretrain_cls"])
+    for name in sorted(k for k in params if "block" in k):
+        kind, j = name.rstrip("0123456789"), name[len(name.rstrip("0123456789")):]
+        pre = f"{kind}s.{j}"
+        for cell, sfx in (("OptimizedLSTMCell_0", ""), ("OptimizedLSTMCell_1", "_reverse")):
+            for key, val in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"),
+                                _lstm_cell(params[name][cell])):
+                state[f"{pre}.G_encoder.{key}_l0{sfx}"] = val
+        for key, val in zip(("weight_ih", "weight_hh", "bias_ih", "bias_hh"),
+                            _lstm_cell(params[name]["fce"]["cell"])):
+            state[f"{pre}.FCE.lstmcell.{key}"] = val
+
+
 _HEAD_CONVERTERS = {
     "ADM": _adm_head,
     "ConvMNet": _convmnet_head,
@@ -303,6 +403,12 @@ _HEAD_CONVERTERS = {
     "MAML": _maml_head,
     "ANIL": _maml_head,
     "BOIL": _maml_head,
+    "MTL": _mtl_head,
+    "MeTAL": _metal_head,
+    "METAL": _metal_head,
+    "LEO": _leo_head,
+    "VERSA": _versa_head,
+    "DMatchingNet": _dmatchingnet_head,
 }
 
 

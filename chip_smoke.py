@@ -48,7 +48,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-18, which run before it);
+   (printed after phases 9-19, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -110,6 +110,15 @@ Phases (any failure ends the script with a non-zero exit code):
    the unadapted ones (BOIL: one step against none) and no parameter may
    hold a ``.grad``; and R2D2MCL (no shipped config) on MCL's Conv64F map:
    one float32 episode card vs CPU.
+19. MeTAL, LEO, VERSA and DMatchingNet on Conv64F's 1600 flat features and
+   MTL on resnet12's 12800, each its shipped ``*_5shot_iid_seed0`` the same
+   way (eval at phase 12's cut, fp32 card vs CPU with LEO's and VERSA's
+   noise drawn on the CPU and handed to both, one training epoch at phase
+   13's cut; BDC launches 0; LEO's losses held finite at its first step
+   and then reported: the JAX package's own trainer drives LEO's shipped
+   config to NaN on this data); then MeTAL's ``per_step_adapters`` path (no
+   shipped config) with its adapters off identity and DMatchingNet's
+   ``single`` branch, each one float32 episode card vs CPU.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -170,6 +179,30 @@ KENDALL_PEAK_MARGIN_GIB = 4.0
 # they adapt
 META_HEADS = ("R2D2", "MAML", "ANIL", "BOIL")
 ADAPT_MIN_REL = 1e-3
+# phase 19: MeTAL, LEO, VERSA and DMatchingNet on Conv64F's flat features,
+# MTL on the plain resnet12's
+SLICE9_HEADS = ("MeTAL", "MTL", "LEO", "VERSA", "DMatchingNet")
+# heads whose shipped config the JAX package's own trainer drives to NaN on
+# the synthetic root from random weights: their training epoch must start
+# finite, and its later losses are reported, not held
+DIVERGES = {"LEO": (
+    "the JAX package's own run_trainer.py on this config (CPU, seed 1) reads "
+    "103.95 at step 1 and NaN from step 2: the encoder's and decoder's "
+    "exp(0.5 logvar) sample scales grow until a latent step overflows")}
+# MTL's shipped 100 SGD steps at lr 0.01 over resnet12's 12800 features (norm
+# ≈ 230 at random weights: lr·|x|² ≈ 500) oscillate chaotically: on one CPU
+# its float32 and float64 logits part by 1.5e-7 of their scale at 5 steps,
+# 1.5e-5 at 20 and 1.49 at 100.  Its float32 card-vs-CPU episode runs 5
+# steps; the shipped 100 are held with a float64 head over shared features
+MTL_CARD_ITER = 5
+_CONV_FLAT = "Conv64F's 1600 flat features"
+SLICE9_FEATURES = {
+    "MeTAL": _CONV_FLAT + "; 5 inner steps an episode with both learned losses",
+    "MTL": "resnet12's 12800 flat features; 100 inner steps an episode",
+    "LEO": _CONV_FLAT + "; 5 latent and 5 fine-tune steps, frozen backbone",
+    "VERSA": _CONV_FLAT + "; trunk BN over the whole batch, 10 samples",
+    "DMatchingNet": _CONV_FLAT + "; 4 splits x (x, d) LSTM blocks, per-episode embeds",
+}
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
 # Recorded, not measured by this script: the kernel's time before its redesign
@@ -327,10 +360,12 @@ def run_test(cfg):
             torch.cuda.max_memory_allocated() / 2 ** 30, acc, launches)
 
 
-def run_trainer(cfg):
+def run_trainer(cfg, diverges=False):
     """``Trainer.train_loop``: its history (with each epoch's episode count),
     peak GiB and the BDC kernels' launches (counts reset just before).
-    Fails on a non-finite loss or accuracy."""
+    Fails on a non-finite loss or accuracy; with ``diverges`` (a config the
+    JAX package's own trainer drives to NaN) on a non-finite first loss or
+    accuracy only."""
     import torch
 
     from audio_fewshot_tpu_torch import train
@@ -343,32 +378,80 @@ def run_trainer(cfg):
     torch.cuda.synchronize()
     launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
     rows = [dict(r, train_eps_count=len(r["train_losses"])) for r in trainer.history]
-    values = [v for r in rows for v in r["train_losses"]] + [
+    losses = [v for r in rows for v in r["train_losses"]]
+    values = (losses[:1] if diverges else losses) + [
         r[k] for r in rows for k in ("val_acc", "test_acc")]
     if not rows or not all(math.isfinite(v) for v in values):
         raise AssertionError(f"{cfg['classifier']['name']} training: non-finite loss or accuracy")
     return rows, torch.cuda.max_memory_allocated() / 2 ** 30, launches
 
 
-def card_vs_cpu(cfg, g):
-    """One float32 episode (episode 0 and its first ``g`` query segments):
-    segment logits of the same model on the card and on the CPU, as
-    max|Δ|/max|logit|, the argmax agreement and the logits' shape."""
+def hand_noise(method) -> None:
+    """A head that samples (LEO, VERSA) draws from a CPU generator of its
+    own, seeded 0, moved to the model's device: the same model on the card
+    and on the CPU then samples the same noise."""
     import torch
 
+    if hasattr(method, "noise"):
+        gen = torch.Generator().manual_seed(0)
+        method.noise.draw = lambda shape, like: torch.randn(shape, generator=gen).to(
+            like.device, like.dtype)
+
+
+def first_episode(cfg, g):
+    """Episode 0 of the config's test loader and its first ``g`` query
+    segments, on the host."""
     from audio_fewshot_tpu_torch.data import get_dataloader
     from audio_fewshot_tpu_torch.episode import EpisodeBatch
+
+    full = next(iter(get_dataloader(cfg, "test")[0].epoch(0)))
+    return EpisodeBatch(
+        support=full.support[:1], query=full.query[:1, :g], query_clip=full.query_clip[:1, :g],
+        query_mask=full.query_mask[:1, :g], support_target=full.support_target[:1],
+        query_target=full.query_target[:1])
+
+
+def float64_head_card_vs_cpu(cfg, g):
+    """The head alone in float64 on the card and on the CPU over the same
+    features (the CPU backbone's, float32): max|Δ|/max|logit|."""
+    import torch
+
     from audio_fewshot_tpu_torch.models import build_method, eval_setting
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
     init_seed(int(cfg["seed"]))
     method_cpu = build_method(cfg).eval()
+    batch = first_episode(cfg, g).to("cpu")
+    with torch.no_grad():
+        feats = method_cpu.embed(batch)
     method_gpu = copy.deepcopy(method_cpu).to("cuda")
-    full = next(iter(get_dataloader(cfg, "test")[0].epoch(0)))
-    batch = EpisodeBatch(
-        support=full.support[:1], query=full.query[:1, :g], query_clip=full.query_clip[:1, :g],
-        query_mask=full.query_mask[:1, :g], support_target=full.support_target[:1],
-        query_target=full.query_target[:1])
+    logits = []
+    for method, device in ((method_gpu, "cuda"), (method_cpu, "cpu")):
+        method.double().embed = lambda b, d=device: tuple(f.double().to(d) for f in feats)
+        with torch.no_grad():
+            logits.append(method(batch.to(device), eval_setting(cfg)).cpu())
+    return rel_err(*logits)
+
+
+def card_vs_cpu(cfg, g, prepare=None):
+    """One float32 episode (episode 0 and its first ``g`` query segments):
+    segment logits of the same model on the card and on the CPU, as
+    max|Δ|/max|logit|, the argmax agreement and the logits' shape.
+    ``prepare`` edits the CPU model before it is copied to the card; a
+    sampling head gets the same noise on both (``hand_noise``)."""
+    import torch
+
+    from audio_fewshot_tpu_torch.models import build_method, eval_setting
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    init_seed(int(cfg["seed"]))
+    method_cpu = build_method(cfg).eval()
+    if prepare is not None:
+        prepare(method_cpu)
+    method_gpu = copy.deepcopy(method_cpu).to("cuda")
+    hand_noise(method_cpu)
+    hand_noise(method_gpu)
+    batch = first_episode(cfg, g)
     with torch.no_grad():
         on_gpu = method_gpu(batch.to("cuda"), eval_setting(cfg)).cpu()
         on_cpu = method_cpu(batch.to("cpu"), eval_setting(cfg))
@@ -684,10 +767,12 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = before
 
 
-def eval_and_train(head: str, label: str, what: str, g: int) -> None:
+def eval_and_train(head: str, label: str, what: str, g: int, card_cfg=None) -> None:
     """One head's eval cell through ``Test`` at ``EVAL_CUT`` (BDC launches
-    0), one float32 episode card vs CPU, one training epoch at
-    ``HEAD_TRAIN_CUT`` (BDC launches 0).  ``what``: the model, for the log."""
+    0), one float32 episode card vs CPU (of ``card_cfg``'s model where it
+    is given, else the shipped one's), one training epoch at
+    ``HEAD_TRAIN_CUT`` (BDC launches 0; finite losses, but from the second
+    step for a head of ``DIVERGES``).  ``what``: the model, for the log."""
     import torch
 
     from audio_fewshot_tpu_torch import train
@@ -708,8 +793,10 @@ def eval_and_train(head: str, label: str, what: str, g: int) -> None:
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
-    print(f"[{label}-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+        rel, agree, shape = card_vs_cpu(
+            card_cfg or slice_config(classifier=head, precision="fp32"), g)
+    print(f"[{label}-eval] {head}{' (' + card_cfg['tag'] + ')' if card_cfg else ''} fp32 "
+          f"segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
           f"agreement {agree:.4f}")
     if not rel <= LOGIT_REL_LIMIT:
@@ -717,7 +804,12 @@ def eval_and_train(head: str, label: str, what: str, g: int) -> None:
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as result_root:
         hcfg = train.slice_config(result_root, classifier=head, **HEAD_TRAIN_CUT)
-        rows, peak_gib, bdc_launches = run_trainer(hcfg)
+        rows, peak_gib, bdc_launches = run_trainer(hcfg, diverges=head in DIVERGES)
+    if head in DIVERGES:
+        losses = [v for r in rows for v in r["train_losses"]]
+        finite = next((i for i, v in enumerate(losses) if not math.isfinite(v)), len(losses))
+        print(f"[{label}-train] {head}: {finite} of {len(losses)} steps' losses finite "
+              f"({[round(v, 3) for v in losses[:finite]]}); {DIVERGES[head]}")
     for r in rows:
         print(f"[{label}-train] {hcfg['tag']} at full width, bf16, augment on, "
               f"{hcfg.get('episode_size', 1)} episode(s) a step, epoch {r['epoch']} of "
@@ -807,6 +899,68 @@ def vit_and_meta_phases(g: int) -> None:
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
     print(f"[meta] phase 18 wall {time.time() - t_phase:.1f} s", flush=True)
+    print(flush=True)
+
+
+def gates_off_identity(method) -> None:
+    """MeTAL's per-step adapters away from the identity: every step's
+    multiplier and offset gates drawn N(0, 0.5²) from seed 0."""
+    import torch
+
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for adapter in (method.meta_loss_adapter, method.meta_query_loss_adapter):
+            for step in adapter.loss_adapter:
+                for gate in (step.multiplier_bias, step.offset_bias):
+                    gate.copy_(0.5 * torch.randn(gate.shape, generator=gen))
+
+
+def slice9_phase(g: int) -> None:
+    """Phase 19: MeTAL, MTL, LEO, VERSA and DMatchingNet, each its shipped
+    config through ``eval_and_train``; MeTAL's per-step path (no shipped
+    config, its adapters off identity) and DMatchingNet's ``single`` branch
+    card vs CPU.  ``g``: the query segments of a card-vs-CPU episode."""
+    import torch
+
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t_phase = time.time()
+    for head in SLICE9_HEADS:
+        card_cfg = None
+        if head == "MTL":
+            card_cfg = slice_config(classifier=head, precision="fp32")
+            card_cfg["classifier"]["kwargs"]["inner_param"]["iter"] = MTL_CARD_ITER
+            card_cfg["tag"] += f" at iter {MTL_CARD_ITER}, NOT the shipped 100"
+        eval_and_train(head, "slice9", SLICE9_FEATURES[head], g, card_cfg)
+        if head == "MTL":
+            torch.backends.cudnn.allow_tf32 = False
+            rel = float64_head_card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
+            print(f"[slice9-eval] MTL's shipped 100 inner steps, the head in float64 over the "
+                  f"CPU backbone's features: card vs CPU max|Δ|/max|logit| {rel:.3e} (limit "
+                  f"{LOGIT_REL_LIMIT:g}; in float32 the 100 steps at lr 0.01 over features of "
+                  f"norm ≈ 230 are chaotic)", flush=True)
+            torch.backends.cudnn.allow_tf32 = True
+            if not rel <= LOGIT_REL_LIMIT:
+                raise AssertionError("MTL's float64 head disagrees on the card and the CPU")
+    extra = []
+    pcfg = slice_config(classifier="MeTAL", precision="fp32")
+    pcfg["classifier"]["kwargs"]["inner_param"]["per_step_adapters"] = True
+    extra.append(("MeTAL with per_step_adapters (NO shipped config; adapters off identity)",
+                  pcfg, gates_off_identity))
+    scfg = slice_config(classifier="DMatchingNet", precision="fp32")
+    scfg["classifier"]["kwargs"]["ifsl_param"]["single"] = True
+    extra.append(("DMatchingNet with single: true (NOT the shipped branch)", scfg, None))
+    torch.backends.cudnn.allow_tf32 = False
+    for label, cfg, prepare in extra:
+        with cudnn_deterministic():
+            rel, agree, shape = card_vs_cpu(cfg, g, prepare)
+        print(f"[slice9] {label}: fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+              f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
+        if not rel <= LOGIT_REL_LIMIT:
+            raise AssertionError(f"float32 {label} card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    print(f"[slice9] phase 19 wall {time.time() - t_phase:.1f} s", flush=True)
     print(flush=True)
 
 
@@ -1321,6 +1475,7 @@ def main() -> int:
     metric_and_bpa_phases(ecfg, expected, g)
     resnet12_phases(g)
     vit_and_meta_phases(g)
+    slice9_phase(g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]

@@ -4,6 +4,8 @@ running statistics (so the BN mapping is really exercised).  The planes are
 fixed in both packages; only the spatial size (32×40) and the BDC width
 (reduce_dim 8) are cut."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,30 @@ from audio_fewshot_tpu.models.backbones.resnet import ResNet12BDC as JaxResNet12
 from audio_fewshot_tpu.utils.torch_convert import invert_backbone_params  # noqa: E402
 from audio_fewshot_tpu_torch.models.backbones.resnet import ResNet12BDC  # noqa: E402
 from audio_fewshot_tpu_torch.utils.convert import state_dict_from_jax  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def xdist_torch_threads():
+    """Under pytest-xdist, the host's cores shared out among its workers as
+    torch CPU threads while a port test module runs (each port test module
+    imports this fixture but ``test_torch_port_metric.py``, whose ADM steps
+    pass at the default count and, summed in another order with one thread,
+    exceed their limits: a gradient 7.7e-6 against 4.9e-6).  torch gives
+    each process one OpenMP thread per core, so the workers' threads would
+    outnumber the cores many times over and wait on each other: a Conv64F
+    MAML eval forward that takes 3.4 s alone took 257 s in each of six such
+    processes at once, and 6-8 s with one thread each (an 8-core host).  In
+    one process the count stays torch's; it is restored after the module,
+    so the JAX package's tests keep theirs."""
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if not workers:
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
+    yield
+    torch.set_num_threads(before)
+
 
 # float32 in both; 13 convolutions sum in another order than XLA's
 RTOL, ATOL = 1e-4, 1e-5

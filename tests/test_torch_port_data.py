@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402

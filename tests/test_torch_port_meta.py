@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -118,17 +119,23 @@ def batches(name, e, pad=0, seed=0):
 
 
 _VARIABLES = {}
+# MAML, ANIL and BOIL draw the same tree (one Conv64F and one Dense from the
+# same key): one initialisation serves the three
+_SAME_INIT = {"ANIL": "MAML", "BOIL": "MAML"}
 
 
 def jax_variables(name):
     """The JAX method's initial variables with random BN statistics and
     head values (R2D2's scalars, the MAML-family Linear's bias), made once
-    per head."""
+    per head (once for the MAML family), its ``init_variables`` jitted (the
+    same draws as op by op, one compile instead of one per op)."""
     name = name.partition(":")[0]
+    name = _SAME_INIT.get(name, name)
     if name not in _VARIABLES:
         jb, _ = batches(name, 1)
-        variables = jax_build_method(meta_config(name)).init_variables(
-            jax.random.PRNGKey(0), jb, SETTING)
+        method = jax_build_method(meta_config(name))
+        variables = jax.jit(lambda key: method.init_variables(key, jb, SETTING))(
+            jax.random.PRNGKey(0))
         rng = np.random.default_rng(1)
         variables = randomize_batchnorm(jax.tree_util.tree_map(np.asarray, variables), rng)
         params = variables["params"]

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 from audio_fewshot_tpu_torch.models.heads.dsn import DSN  # noqa: E402
 from audio_fewshot_tpu_torch.models.heads.proto_net import proto_logits  # noqa: E402

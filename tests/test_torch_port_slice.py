@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 
@@ -188,7 +189,7 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax():
-    banned = ("jax", "jaxlib", "flax", "optax", "audio_fewshot_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "audio_fewshot_tpu", "tools")
     offenders = []
     for path in _port_files():
         with open(path, encoding="utf-8") as f:
@@ -213,7 +214,8 @@ def test_port_imports_nothing_of_jax():
             "models/heads/relation_net.py", "ops/bpa.py", "models/backbones/resnet.py",
             "models/heads/meta_baseline.py", "models/heads/dsn.py", "models/heads/frn.py",
             "models/heads/feat.py", "models/heads/can.py", "models/heads/kendall.py",
-            "models/losses.py", "registry.py"} <= scanned
+            "models/losses.py", "registry.py", "models/heads/metal.py", "models/heads/mtl.py",
+            "models/heads/leo.py", "models/heads/versa.py", "models/heads/ifsl.py"} <= scanned
     assert not offenders, offenders
 
 

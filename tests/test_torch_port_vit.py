@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 
