@@ -1,9 +1,9 @@
-"""Data layer: spectrogram datasets, episodic sampling, eval loaders and the
-device-resident segment bank."""
+"""Data layer: spectrogram datasets, episodic and flat sampling, the loaders
+and the device-resident segment bank."""
 
 from .dataset import SpectrogramDataset, load_mean_std, load_splits, segment_clip
-from .loader import EpisodicLoader, get_dataloader, get_mean_std, resolve_data_sources
-from .sampler import EpisodicSampler
+from .loader import EpisodicLoader, FlatLoader, get_dataloader, get_mean_std, resolve_data_sources
+from .sampler import EpisodicSampler, FlatSampler
 
 __all__ = [
     "SpectrogramDataset",
@@ -12,6 +12,8 @@ __all__ = [
     "segment_clip",
     "EpisodicLoader",
     "EpisodicSampler",
+    "FlatLoader",
+    "FlatSampler",
     "get_dataloader",
     "get_mean_std",
     "resolve_data_sources",

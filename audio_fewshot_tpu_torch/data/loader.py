@@ -1,4 +1,4 @@
-"""Episodic loaders and ``get_dataloader`` (counterpart of
+"""Episodic and flat loaders and ``get_dataloader`` (counterpart of
 ``audio_fewshot_tpu/data/loader.py``).
 
 - train: every clip contributes ONE random segment, giving a fully dense
@@ -10,7 +10,8 @@ The per-epoch numpy generator draws in the same order as the JAX package, so
 both packages build the same episodes from a seed.  A background thread
 builds numpy batches while the device computes.  With a segment bank
 (``data/bank.py``) the loader emits bank row ids instead of payloads.
-Flat (FINETUNING) and dual loaders are not ported yet.
+FINETUNING methods train on a ``FlatLoader``'s flat batches; the dual
+(episodic + flat) loader of ``dataloader_num: 2`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import numpy as np
 
 from ..episode import (
     EpisodeBatch,
+    FlatBatch,
     IndexedEpisodeBatch,
+    IndexedFlatBatch,
     local_targets,
     make_dense_episode_batch,
     pack_ragged_episode_batch,
@@ -40,7 +43,7 @@ from .dataset import (
     parse_synthetic_root,
     segment_shape,
 )
-from .sampler import EpisodeIndices, EpisodicSampler
+from .sampler import EpisodeIndices, EpisodicSampler, FlatSampler
 
 _SPLIT_INDEX = {"train": 0, "val": 1, "test": 2}
 
@@ -357,20 +360,59 @@ class EpisodicLoader:
         return self.epoch(0)
 
 
+class FlatLoader:
+    """Flat classification batches for FINETUNING training: ``FlatSampler``'s
+    (class, clip) pairs, one random segment of each clip, drawn with
+    ``default_rng((seed, epoch, 17))`` in the pairs' order (the JAX package's
+    draws).  Targets are the class indices of the split."""
+
+    def __init__(self, dataset: SpectrogramDataset, batch_size: int, seed: int = 0):
+        self.dataset = dataset
+        #: emit ``IndexedFlatBatch``es of bank row ids (see ``use_segment_bank``)
+        self.emit_indices = False
+        self._bank_starts: Optional[List[List[int]]] = None
+        self.sampler = FlatSampler(dataset.clips_per_class(), batch_size, seed=seed)
+
+    def use_segment_bank(self) -> None:
+        """Switch batches to bank-index form: the same draws, so a batch
+        materialised from the bank equals the payload batch."""
+        self._bank_starts = self.dataset.bank_starts()
+        self.emit_indices = True
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[Any]:
+        ds = self.dataset
+        rng = np.random.default_rng((self.sampler.seed, epoch_idx, 17))
+        for pairs in self.sampler.epoch(epoch_idx):
+            # one draw per pair, in order, on both paths
+            picks = [int(rng.integers(ds.clips[c][k].shape[0])) for c, k in pairs]
+            target = np.asarray(pairs[:, 0], dtype=np.int32)
+            if self.emit_indices:
+                starts = self._bank_starts
+                yield IndexedFlatBatch(
+                    data_idx=np.asarray([starts[c][k] + o for (c, k), o in zip(pairs, picks)],
+                                        dtype=np.int32),
+                    target=target)
+            else:
+                data = np.stack([ds.clips[c][k][o] for (c, k), o in zip(pairs, picks)])
+                yield FlatBatch(data=ds.normalize(data), target=target)
+
+    def __iter__(self) -> Iterator[Any]:
+        return self.epoch(0)
+
+
 def get_dataloader(
     config: Dict[str, Any],
     mode: str,
     model_type: ModelType = ModelType.METRIC,
     distribute: bool = False,
     modality: str = "audio",
-) -> List[EpisodicLoader]:
-    """A list of loaders (one episodic loader), as the JAX package's
-    surface."""
-    if mode == "train" and model_type == ModelType.FINETUNING:
-        raise NotImplementedError(
-            "flat FINETUNING train loaders (FlatLoader) are not ported yet "
-            "(ROADMAP Queue A, finetuning family)"
-        )
+) -> List[Any]:
+    """A list of loaders, as the JAX package's surface: one episodic loader,
+    or for FINETUNING training one ``FlatLoader`` of ``batch_size`` (128 by
+    default)."""
     if mode == "train" and int(config.get("dataloader_num", 1)) > 1:
         raise NotImplementedError(
             "dataloader_num > 1 (the dual episodic + flat loader) is not "
@@ -387,6 +429,8 @@ def get_dataloader(
     prefetch = int(config.get("prefetch", 2))
     if str(config.get("workers", 1)) in ("0", "0.0"):
         prefetch = 0
+    if mode == "train" and model_type == ModelType.FINETUNING:
+        return [FlatLoader(dataset, int(config.get("batch_size", 128)), seed=seed)]
     if mode == "train":
         way, shot, query_n = config["way_num"], config["shot_num"], config["query_num"]
         episodes = int(config.get("train_episode", 500))

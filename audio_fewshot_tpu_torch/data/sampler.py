@@ -4,7 +4,8 @@
 Each episode draws ``way`` classes; per class ``shot`` support clips and
 ``query`` query clips, without overlap; ``episode_size`` episodes per batch.
 Sampling is numpy index bookkeeping on the host, in the same draw order as
-the JAX package, so the same seed gives the same episodes.
+the JAX package, so the same seed gives the same episodes.  ``FlatSampler``
+gives FINETUNING training its shuffled flat batches of (class, clip) pairs.
 """
 
 from __future__ import annotations
@@ -76,3 +77,25 @@ class EpisodicSampler:
             support[i] = pick[: self.shot]
             query[i] = pick[self.shot :]
         return EpisodeIndices(classes=cls, support=support, query=query)
+
+
+class FlatSampler:
+    """Shuffled flat batches of (class, clip) pairs over the whole split,
+    ``batch_size`` each; the last partial batch is dropped.  Each epoch
+    permutes the pairs with ``default_rng((seed, epoch, 7))``, as the JAX
+    package does."""
+
+    def __init__(self, clips_per_class: List[int], batch_size: int, seed: int = 0):
+        pairs = [(c, k) for c, n in enumerate(clips_per_class) for k in range(n)]
+        self.pairs = np.asarray(pairs, dtype=np.int64)
+        self.batch_size = batch_size
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return len(self.pairs) // self.batch_size
+
+    def epoch(self, epoch_idx: int) -> Iterator[np.ndarray]:
+        """Yield ``len(self)`` arrays ``[batch_size, 2]`` of (class, clip)."""
+        order = np.random.default_rng((self.seed, epoch_idx, 7)).permutation(len(self.pairs))
+        for start in range(0, len(self) * self.batch_size, self.batch_size):
+            yield self.pairs[order[start : start + self.batch_size]]

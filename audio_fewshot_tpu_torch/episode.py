@@ -6,6 +6,8 @@ integer clip id and a validity mask.  Loaders build the batches as numpy
 arrays on the host (the same arrays, from the same seed, as the JAX
 package); ``.to(device)`` moves them to torch tensors.  Clip-level
 aggregation is then a one-hot contraction (``utils/aggregate.py``).
+FINETUNING methods train on flat classification batches instead
+(``FlatBatch``; ``IndexedFlatBatch`` with rows of a segment bank).
 """
 
 from __future__ import annotations
@@ -109,6 +111,45 @@ class IndexedEpisodeBatch:
         device = torch.device(device)
         return IndexedEpisodeBatch(**{f.name: _to_tensor(getattr(self, f.name), device)
                                       for f in dataclasses.fields(self)})
+
+
+@dataclass
+class FlatBatch:
+    """A plain classification batch for FINETUNING training: ``data`` ``[B,
+    C, F, T]`` segments and ``target`` ``[B]`` class ids of the train
+    split."""
+
+    data: Any
+    target: Any
+
+    def to(self, device, transfer_dtype: Optional[torch.dtype] = None) -> "FlatBatch":
+        """Tensors on ``device`` (the payload sent in ``transfer_dtype`` when
+        given, float32 on the device)."""
+        device = torch.device(device)
+        return FlatBatch(data=_to_tensor(self.data, device, transfer_dtype).float(),
+                         target=_to_tensor(self.target, device))
+
+
+@dataclass
+class IndexedFlatBatch:
+    """A ``FlatBatch`` whose payload lives in a segment bank: ``data_idx``
+    ``[B]`` rows of ``bank [N, C, F, T]``."""
+
+    data_idx: Any
+    target: Any
+
+    def to(self, device) -> "IndexedFlatBatch":
+        device = torch.device(device)
+        return IndexedFlatBatch(data_idx=_to_tensor(self.data_idx, device),
+                                target=_to_tensor(self.target, device))
+
+
+def materialize_flat_batch(batch, bank: torch.Tensor) -> FlatBatch:
+    """Gather an ``IndexedFlatBatch``'s rows out of ``bank`` (upcast to
+    float32 after the gather); a ``FlatBatch`` passes through."""
+    if isinstance(batch, FlatBatch):
+        return batch
+    return FlatBatch(data=bank.index_select(0, batch.data_idx).float(), target=batch.target)
 
 
 def local_targets(way: int, count_per_way: int) -> np.ndarray:

@@ -125,6 +125,26 @@ SLICE_MODELS.update({
         "backbone": _CONV64F, "tag": "ifsl_5shot_iid_seed0"},
 })
 
+# the finetuning family and the pretrainers: global heads over Conv64F's 1600
+# flat features (Baseline, BaselinePlus), resnet12's 12800 or resnet12Bdc's
+# 2080 BDC features; FEAT_Pretrain has no shipped config (its JAX defaults)
+_FINETUNE_INNER = {"inner_train_iter": 20, "inner_batch_size": 4,
+                   "inner_optim": {"lr": 0.01, "momentum": 0.9, "weight_decay": 0.001}}
+SLICE_MODELS.update({
+    name: {"classifier": {"name": name, "kwargs": {"num_class": 25, **kwargs}},
+           "backbone": backbone, "tag": tag}
+    for name, tag, kwargs, backbone in (
+        ("Baseline", "baseline_5shot_iid_seed0", {"inner_param": _FINETUNE_INNER}, _CONV64F),
+        ("BaselinePlus", "baseline_plus_5shot_iid_seed0", {"inner_param": {
+            **_FINETUNE_INNER, "inner_optim": {"lr": 0.01, "momentum": 0.9}}}, _CONV64F),
+        ("NegNet", "negnet_5shot_iid_seed0", {"margin": -0.01}, _RESNET12),
+        ("RFSModel", "rfs_5shot_iid_seed0", {}, _RESNET12),
+        ("SKDModel", "skd_5shot_iid_seed0", {"gamma": 1.0, "alpha": 0.1}, _RESNET12),
+        ("MetabaselinePretrain", "metabaseline_pretrain_5shot_iid_seed0", {}, _RESNET12),
+        ("FEAT_Pretrain", "feat_pretrain_no_shipped_config", {}, _RESNET12),
+        ("DeepBDC_Pretrain", "deepbdc_pretrain_5shot_iid_seed0", {"val_type": "meta"},
+         SLICE_MODELS["DeepBDC"]["backbone"]))})
+
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
                  classifier: str = "DeepBDC", test_episode_size: int = 16) -> Dict[str, Any]:
@@ -138,8 +158,12 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     ADM_KL, ConvMNet, ATLNet, MCL, RelationNet), a resnet12 head
     (MetaBaseline, MetaBaselineKendall, FEAT, DSN, FRN, CAN), CPEANet on
     vit_tiny, a meta head on Conv64F (R2D2, MAML, ANIL, BOIL, MeTAL, LEO,
-    VERSA, DMatchingNet) or MTL on resnet12: its shipped
-    ``*_5shot_iid_seed0.yaml``.  Each with its headers, as a dict (no YAML needed), cut
+    VERSA, DMatchingNet), MTL on resnet12, a finetuning head (Baseline and
+    BaselinePlus on Conv64F, NegNet, RFSModel, SKDModel on resnet12) or a
+    pretrainer (MetabaselinePretrain on resnet12, DeepBDC_Pretrain on
+    resnet12Bdc): its shipped ``*_5shot_iid_seed0.yaml``; FEAT_Pretrain (no
+    shipped config) on resnet12 at its defaults.  Each with its headers, as
+    a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16
     by default), and a ``synthetic`` root of ``[1, 128, 157]`` segments,

@@ -237,6 +237,7 @@ class ResNet12BDC(nn.Module):
             last_residual=True, drop_rate=drop_rate, block_size=dropblock_size,
             use_running_statistics=use_running_statistics)
         self.bdc_pool = BdcHead(640, reduce_dim)
+        self.reduce_dim = reduce_dim or 640
         # the reference resnet12Bdc's initialisation
         for mod in self.modules():
             if isinstance(mod, nn.Conv2d):
@@ -244,6 +245,11 @@ class ResNet12BDC(nn.Module):
             elif isinstance(mod, nn.BatchNorm2d):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
+
+    def feature_dim(self, spec_shape: Sequence[int]) -> int:
+        """The width of the BDC features, d(d + 1)/2 at ``reduce_dim`` d (the
+        global heads of the pretrainers)."""
+        return self.reduce_dim * (self.reduce_dim + 1) // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)

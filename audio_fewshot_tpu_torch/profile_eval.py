@@ -6,9 +6,10 @@ Builds an eval cell of ``eval.slice_config`` (``--classifier DeepBDC``, the
 default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; a Conv64F
 metric head such as ``MCL`` or ``DN4``; each at [1, 128, 157] segments, 16
 episodes per step, bf16) through ``Test``, warms
-up, then runs ``--steps`` eval steps under ``torch.profiler`` and prints the
-device time by kernel category and the top kernels, the device-busy share
-of the window, and the step time.  Needs a CUDA device.
+up, times ``--steps`` eval steps without the profiler, then runs them again
+under ``torch.profiler`` and prints the device time by kernel category and
+the top kernels, the device-busy share of the window, and the step times
+with and without the profiler.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -88,6 +89,11 @@ def main(argv=None) -> int:
     torch.set_grad_enabled(False)  # as ``Test.test_loop`` runs its steps
     test._eval_step(batches[0]).cpu()  # warm-up
     torch.cuda.synchronize()
+    t0 = time.time()
+    for batch in batches:
+        test._eval_step(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3 / len(batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for batch in batches:
@@ -96,7 +102,7 @@ def main(argv=None) -> int:
         wall_us = (time.time() - t0) * 1e6
     report(prof, wall_us, f"{args.classifier}: {len(batches)} eval steps of "
            f"{cfg['test_episode_size']} episodes "
-           f"({wall_us / 1e3 / len(batches):.1f} ms/step)")
+           f"({wall_us / 1e3 / len(batches):.1f} ms/step; {plain_ms:.1f} without the profiler)")
     return 0
 
 

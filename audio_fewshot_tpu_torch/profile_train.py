@@ -5,8 +5,9 @@
 Builds a training cell of ``train.slice_config`` (``--classifier DeepBDC``,
 the default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; either
 or any head of ``eval.SLICE_MODELS``; at [1, 128, 157] segments, one 5-way
-5-shot 10-query episode a step (MAML's config: two), bf16,
-Adam, augmentation on) through ``Trainer``, runs a few warm-up steps, then
+5-shot 10-query episode a step (MAML's config: two; a FINETUNING head: a
+flat batch of 128, epochs of 7 steps taken one after another), bf16,
+Adam, augmentation on but for FINETUNING) through ``Trainer``, runs a few warm-up steps, then
 ``--steps`` train steps under ``torch.profiler`` (each as the train loop
 runs it: batch to the device, augmentation, loss, backward, optimizer step,
 the loss read back) and prints the device time by kernel category, the top
@@ -24,6 +25,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from .data.loader import FlatLoader
 from .profile_eval import report
 from .eval import SLICE_MODELS
 from .train import Trainer, slice_config
@@ -48,11 +50,17 @@ def main(argv=None) -> int:
         gen = torch.Generator().manual_seed(0)
 
         def step(host_batch) -> float:
-            batch = trainer._augment_batch(
-                trainer._device_batch(host_batch, trainer.train_bank), gen)
+            batch = trainer._device_batch(host_batch, trainer.train_bank)
+            if trainer.augment:
+                batch = trainer._augment_batch(batch, gen)
             return float(trainer._train_step(batch)["loss"])
 
-        batches = list(trainer.train_loader[0].epoch(0))
+        loader = trainer.train_loader[0]
+        batches, epoch = [], 0
+        while len(batches) < WARMUP_STEPS + args.steps:
+            batches += list(loader.epoch(epoch))
+            epoch += 1
+        batches = batches[:WARMUP_STEPS + args.steps]
         for host_batch in batches[:WARMUP_STEPS]:
             step(host_batch)
         torch.cuda.synchronize()
@@ -63,7 +71,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_us = (time.time() - t0) * 1e6
     n = len(batches) - WARMUP_STEPS
-    report(prof, wall_us, f"{args.classifier}: {n} train steps of {75 * episode_size} segments "
+    rows = (trainer.method.backbone_rows(loader.sampler.batch_size)
+            if isinstance(loader, FlatLoader) else 75 * episode_size)
+    report(prof, wall_us, f"{args.classifier}: {n} train steps of {rows} segments "
            f"({wall_us / 1e3 / n:.1f} ms/step)")
     return 0
 

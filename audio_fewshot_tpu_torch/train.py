@@ -1,10 +1,12 @@
-"""Trainer: the episodic train loop with validation, testing and checkpoints
+"""Trainer: the train loop with validation, testing and checkpoints
 (counterpart of ``Trainer`` in ``audio_fewshot_tpu/train.py``).
 
 ``Trainer(rank, config, device).train_loop()`` runs, per epoch: the train
 steps of one episodic loader (random segment per clip, optional random
 spectrogram augmentation, loss, backward, optimizer step; the LR scale is
-set once per epoch), then a validation and a test pass (per-episode
+set once per epoch) or, for a FINETUNING method, of one ``FlatLoader``
+(flat batches of ``batch_size`` segments, no augmentation, an epoch of
+``len(FlatSampler)`` steps), then a validation and a test pass (per-episode
 majority-vote clip accuracy and a 95 % CI), then the checkpoints: best (by
 val accuracy; the best test accuracy is the one AT that epoch), every
 ``save_interval`` epochs, and last (with the optimizer and scheduler
@@ -12,8 +14,7 @@ state, which ``resume`` reads back).  It runs on ``cuda`` unless ``device``
 says otherwise, and raises when no card is there.
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP item):
-``profile_steps``, IFSL's featuring pass, ``dataloader_num > 1`` and flat
-FINETUNING training.
+``profile_steps``, IFSL's featuring pass and ``dataloader_num > 1``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 from .config import Config, save_config
 from .data import get_dataloader, get_mean_std
 from .data.bank import resolve_transfer_dtype, setup_segment_banks
-from .episode import EpisodeBatch, materialize_episode_batch
+from .episode import (EpisodeBatch, FlatBatch, IndexedFlatBatch, materialize_episode_batch,
+                      materialize_flat_batch)
 from .eval import SLICE_MODELS
 from .models import build_method, eval_setting, train_setting
 from .models.backbones.layers import seed_dropout
@@ -52,7 +54,8 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
     ``eval.SLICE_MODELS``: its shipped ``*_5shot_iid_seed0.yaml``.  Each with
     its headers, as a dict (no YAML needed): 5-way 5-shot 10-query on
     ``[1, 128, 157]`` segments, one episode a step (75 segments; MAML's
-    config: two), bf16
+    config: two; a FINETUNING head trains on flat batches of ``batch_size``
+    128, 7 steps an epoch over the 25 × 40 train clips), bf16
     backbone and fp32 head, Adam at lr 0.005 with CosineAnnealingLR(T_max
     100), ``augment: true`` with the Clean mean/std.  Cut to size: ``epoch``
     30 → 2, ``train_episode`` 1000 → 40, ``test_episode`` (val and test) 600
@@ -131,7 +134,8 @@ class Trainer:
             "train", ["batch_time", "data_time", "calc_time", "loss", "acc"], self.writer)
         self.eval_meter = AverageMeter("eval", ["acc"], self.writer)
         #: per epoch run by ``train_loop``: epoch, train losses per step,
-        #: train episodes/s and ms per step (host clock, each step ends in a
+        #: train episodes/s (flat training: segments through the backbones
+        #: per second) and ms per step (host clock, each step ends in a
         #: sync), val/test accuracy and CI
         self.history: List[Dict[str, Any]] = []
 
@@ -179,9 +183,13 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
-    def _device_batch(self, host_batch, bank) -> EpisodeBatch:
+    def _device_batch(self, host_batch, bank):
+        """An ``EpisodeBatch`` or ``FlatBatch`` on the device (gathered from
+        ``bank`` when the loader emits bank rows)."""
+        flat = isinstance(host_batch, (FlatBatch, IndexedFlatBatch))
         if bank is not None:
-            return materialize_episode_batch(host_batch.to(self.device), bank)
+            materialize = materialize_flat_batch if flat else materialize_episode_batch
+            return materialize(host_batch.to(self.device), bank)
         return host_batch.to(self.device, self.transfer_dtype)
 
     def _augment_batch(self, batch: EpisodeBatch, gen: torch.Generator) -> EpisodeBatch:
@@ -242,7 +250,8 @@ class Trainer:
         meter.reset()
         self.optimizer.set_lr_scale(self.scheduler.scale(epoch))
         log_interval = int(cfg.get("log_interval", 100))
-        episode_size = int(cfg.get("episode_size", 1))
+        flat = self.method.model_type == ModelType.FINETUNING
+        episode_size = 1 if flat else int(cfg.get("episode_size", 1))
         n_steps = len(self.train_loader[0])
         # augmentation and dropout draws per epoch: a resumed run draws what
         # an uninterrupted one would.  The dropout seed is the first draw of
@@ -280,9 +289,13 @@ class Trainer:
                     )
                 )
         wall = time.time() - t_epoch
-        record.update(train_losses=losses,
-                      train_eps=len(losses) * episode_size / max(wall, 1e-9),
-                      step_ms=1e3 * meter.avg("calc_time"))
+        record.update(train_losses=losses, step_ms=1e3 * meter.avg("calc_time"))
+        if flat:
+            # segments through the backbones (SKD's flips, a teacher's pass)
+            rows = self.method.backbone_rows(self.train_loader[0].sampler.batch_size)
+            record["train_segments_per_s"] = len(losses) * rows / max(wall, 1e-9)
+        else:
+            record["train_eps"] = len(losses) * episode_size / max(wall, 1e-9)
         return meter.avg("loss")
 
     @torch.no_grad()

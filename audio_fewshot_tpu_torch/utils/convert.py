@@ -12,8 +12,9 @@ DropBlock ramp counters (``batch_stats[layer{3,4}]["num_batches_tracked"]``
 → ``layer{3,4}.0.num_batches_tracked``, int64) where the variables hold
 them, which the JAX package's inverter drops.  The heads with parameters
 (ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN, CPEANet,
-R2D2 and R2D2MCL, the MAML family, MTL, MeTAL, LEO, VERSA, DMatchingNet)
-map onto the reference torch names, the port's copy of ``invert_{adm,
+R2D2 and R2D2MCL, the MAML family, MTL, MeTAL, LEO, VERSA, DMatchingNet, and
+the global ``classifier`` (and SKDModel's ``rot_classifier``) of the
+finetuning family and the pretrainers) map onto the reference torch names, the port's copy of ``invert_{adm,
 convmnet,atlnet,relationnet,metabaseline,feat,frn,can,cpea,r2d2,maml,mtl,
 leo,versa,dmatchingnet}_head_params``, ``invert_metal_per_step_params`` and
 ``_invert_lstm_cell`` in ``tools/cross_framework_parity.py`` (MeTAL's
@@ -388,6 +389,16 @@ def _dmatchingnet_head(params, stats, state) -> None:
             state[f"{pre}.FCE.lstmcell.{key}"] = val
 
 
+def _global_head(params, stats, state) -> None:
+    """The finetuning family's and the pretrainers' global head: the
+    ``classifier`` Dense (beside ``emb_func``) → ``classifier`` (no bias on
+    the cosine heads, whose Dense has none); SKDModel's ``rot_classifier``
+    too."""
+    for name in ("classifier", "rot_classifier"):
+        if name in params:
+            _linear_entries(state, name, params[name], bias="bias" in params[name])
+
+
 _HEAD_CONVERTERS = {
     "ADM": _adm_head,
     "ConvMNet": _convmnet_head,
@@ -409,6 +420,9 @@ _HEAD_CONVERTERS = {
     "LEO": _leo_head,
     "VERSA": _versa_head,
     "DMatchingNet": _dmatchingnet_head,
+    **{name: _global_head for name in (
+        "Baseline", "BaselinePlus", "NegNet", "RFSModel", "SKDModel", "MetabaselinePretrain",
+        "FEAT_Pretrain", "DeepBDC_Pretrain")},
 }
 
 

@@ -12,7 +12,8 @@ Phases (any failure ends the script with a non-zero exit code):
    fails the run;
 3. each kernel against its plain PyTorch version on the card, in float32
    with TF32 off, at the main-path shape, at the shapes phase 11's TTA cell
-   gives it (its episode batch and its augmented segments), at odd shapes
+   gives it (its episode batch and its augmented segments), at phase 20's
+   flat training batch (128, 64, 304) (timed too), at odd shapes
    (every padded width of the kernel on both of its load paths), and on three
    adversarial inputs (post-ReLU, near-duplicate rows, scaled by 30) where
    both are also held against a float64 evaluation (max abs error limit
@@ -28,8 +29,9 @@ Phases (any failure ends the script with a non-zero exit code):
 5. one float32 batch: segment logits on the card against the same model on
    the CPU;
 6. the backward kernel against autograd through the plain version on the
-   card, in float32 with TF32 off, at the training shape (75, 64, 304), at
-   the odd shapes of phase 3 (every padded width on both load paths), with
+   card, in float32 with TF32 off, at the training shape (75, 64, 304) and
+   phase 20's flat one (128, 64, 304) (both timed), at the odd shapes of
+   phase 3 (every padded width on both load paths), with
    one element, with clusters of 8, 2 and 1 blocks and with slices walked in
    chunks (relative to the max abs, limit 1e-4), twice on one input (the
    same bits), and on
@@ -48,7 +50,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-19, which run before it);
+   (printed after phases 9-20, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -85,8 +87,8 @@ Phases (any failure ends the script with a non-zero exit code):
 15. the heads on the plain resnet12 (MetaBaseline, MetaBaselineKendall,
    FEAT, DSN on its flat 12800 features; FRN and CAN on its [640, 8, 9]
    map), each its shipped ``*_5shot_iid_seed0`` at full width through
-   ``Test`` at phase 12's cut (Kendall at one epoch of 32 episodes: its
-   exact pair count takes seconds a step): eval eps/s of each epoch, ms a
+   ``Test`` at one epoch of 64 test episodes (Kendall at one epoch of 32:
+   its exact pair count takes seconds a step): eval eps/s of each epoch, ms a
    step, peak memory, BDC launches (must be 0), one float32 episode's logits
    on the card against the CPU, and the phase's wall;
 16. their training, each one epoch at phase 13's cut with ``drop_rate`` 0.1
@@ -119,6 +121,25 @@ Phases (any failure ends the script with a non-zero exit code):
    config to NaN on this data); then MeTAL's ``per_step_adapters`` path (no
    shipped config) with its adapters off identity and DMatchingNet's
    ``single`` branch, each one float32 episode card vs CPU.
+20. the finetuning family and the pretrainers: Baseline and BaselinePlus
+   on Conv64F's 1600 flat features, NegNet, RFSModel, SKDModel,
+   MetabaselinePretrain and FEAT_Pretrain (no shipped config) on
+   resnet12's 12800, DeepBDC_Pretrain on resnet12Bdc's 2080 BDC features,
+   each its shipped ``*_5shot_iid_seed0`` at full width: eval through
+   ``Test`` (Conv64F's at phase 12's cut, the others at phase 15's: eps/s,
+   ms a step, peak memory), one float32 episode's logits card vs CPU (the
+   probe heads' too: both ends converge to the same optimum), one training
+   epoch on flat batches of 128 (7 steps over the synthetic root's 25 x 40
+   clips; ms a step, segments through the backbones a second, finite
+   losses) and one flat train step's loss card vs CPU (the first 32 rows
+   of the first batch, dropout off).  BDC launches are reset before each
+   cell and read after it: DeepBDC_Pretrain must launch the forward kernel
+   once a backbone call of its eval and training passes and the backward
+   kernel once a train step, every other cell neither.  Then its
+   ``save_part`` checkpoint of ``emb_func`` loads into DeepBDC through
+   ``pretrain_path`` (the weights held equal) for one eval epoch, and
+   DeepBDC_Pretrain with ``val_type: stl`` (no shipped config) runs card vs
+   CPU.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -161,6 +182,10 @@ HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
 # phases 12 and 14's eval cut: 2 test epochs of 256 episodes (16 steps of 16)
 # each, so that each epoch's eps/s is read over many steps and the two agree
 EVAL_CUT = {"test_episode": 256, "test_epoch": 2}
+# the resnet12-family eval cut of phases 15 and 20: one epoch of 64 test
+# episodes, 4 steps of 16 (a step takes ≈ 0.6 s; phase 12's cut took 200 s
+# of phase 15)
+RESNET_EVAL_CUT = {"test_episode": 64, "test_epoch": 1}
 # phases 15 and 16: the heads on the plain resnet12, with the map each sees
 RESNET12_HEADS = ("MetaBaseline", "MetaBaselineKendall", "FEAT", "DSN", "FRN", "CAN")
 _FLAT = "resnet12's [640, 4, 5] avg-pooled map, 12800 features"
@@ -203,6 +228,29 @@ SLICE9_FEATURES = {
     "VERSA": _CONV_FLAT + "; trunk BN over the whole batch, 10 samples",
     "DMatchingNet": _CONV_FLAT + "; 4 splits x (x, d) LSTM blocks, per-episode embeds",
 }
+# phase 20: the finetuning family and the pretrainers, with the features each
+# head reads
+_RESNET_FLAT = "resnet12's 12800 flat features"
+SLICE10_FEATURES = {
+    "Baseline": _CONV_FLAT + "; a linear head adapted 140 SGD steps an episode",
+    "BaselinePlus": _CONV_FLAT + "; a cosine head adapted 140 SGD steps an episode",
+    "NegNet": _RESNET_FLAT + "; a NegLayer adapted 140 SGD steps an episode",
+    "RFSModel": _RESNET_FLAT + "; the L-BFGS probe (128 iterations) an episode",
+    "SKDModel": _RESNET_FLAT + "; the L-BFGS probe, 4 flips x 128 in training",
+    "MetabaselinePretrain": _RESNET_FLAT + "; cosine prototypes",
+    "FEAT_Pretrain": _RESNET_FLAT + "; euclidean prototypes; NO shipped config",
+    "DeepBDC_Pretrain": "resnet12Bdc's 2080 BDC features; BDC prototypes",
+}
+# one flat training epoch (7 steps of batch_size 128 over the 25 x 40 train
+# clips) with 16 val and test episodes, 4 a step (at 16 a step the passes'
+# 4496 segments would set the cell's peak memory, not the flat steps)
+FLAT_TRAIN_CUT = {"epoch": 1, "test_episode": 16}
+FLAT_EVAL_EPISODES = 4
+# a flat train step's loss card vs CPU over the first rows of the first batch
+# (NOT the shipped 128: a resnet12 forward of 128 rows takes seconds on the CPU)
+FLAT_CHECK_ROWS = 32
+# phase 20's flat training batch through resnet12Bdc's BDC pool
+FLAT_SHAPE = (128, 64, 304)
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
 # Recorded, not measured by this script: the kernel's time before its redesign
@@ -647,7 +695,7 @@ def resnet12_phases(g: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     for head in RESNET12_HEADS:
         t0 = time.time()
-        cut = KENDALL_EVAL_CUT if head == "MetaBaselineKendall" else EVAL_CUT
+        cut = KENDALL_EVAL_CUT if head == "MetaBaselineKendall" else RESNET_EVAL_CUT
         hcfg = slice_config(classifier=head, **cut)
         eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
         note = (" (Kendall's own cut: its exact pair count takes seconds a step, so "
@@ -964,6 +1012,175 @@ def slice9_phase(g: int) -> None:
     print(flush=True)
 
 
+def flat_loss_card_vs_cpu(head: str) -> tuple:
+    """One flat train step's loss of the same float32 model (dropout off,
+    NOT the shipped rate) on the card and on the CPU, over the first
+    ``FLAT_CHECK_ROWS`` rows of the first batch of the head's train
+    loader: (card loss, CPU loss, |Δ| / |CPU loss|)."""
+    import torch
+
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.episode import FlatBatch
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.models import build_method, train_setting
+    from audio_fewshot_tpu_torch.models.backbones.layers import Dropout
+    from audio_fewshot_tpu_torch.models.base import ModelType
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    cfg = slice_config(classifier=head, precision="fp32")
+    if cfg["backbone"]["name"] != "Conv64F":
+        cfg["backbone"]["kwargs"]["drop_rate"] = 0.0
+    init_seed(int(cfg["seed"]))
+    method_cpu = build_method(cfg).train()
+    for module in method_cpu.modules():
+        if isinstance(module, Dropout):
+            module.rate = 0.0
+    method_gpu = copy.deepcopy(method_cpu).to("cuda")
+    batch = next(iter(get_dataloader(cfg, "train", ModelType.FINETUNING)[0].epoch(0)))
+    batch = FlatBatch(data=batch.data[:FLAT_CHECK_ROWS], target=batch.target[:FLAT_CHECK_ROWS])
+    setting = train_setting(cfg)
+    on_gpu = method_gpu.loss(batch.to("cuda"), setting)[0].item()
+    on_cpu = method_cpu.loss(batch.to("cpu"), setting)[0].item()
+    return on_gpu, on_cpu, abs(on_gpu - on_cpu) / abs(on_cpu)
+
+
+def slice10_cell(head: str, g: int) -> tuple:
+    """Phase 20's cells of one head: eval through ``Test``, one float32
+    episode card vs CPU, one flat training epoch, one flat train step's
+    loss card vs CPU.  Returns the BDC launches of its eval and of its
+    training (each counted from 0) and the steps behind them: ((eval
+    forward, eval backward, eval backbone calls), (train forward, train
+    backward, train steps, val and test steps))."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import SLICE_MODELS, slice_config
+
+    t0 = time.time()
+    conv = SLICE_MODELS[head]["backbone"]["name"] == "Conv64F"
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hcfg = slice_config(classifier=head, **(EVAL_CUT if conv else RESNET_EVAL_CUT))
+    eps, ms, peak_gib, acc, eval_launches = run_test(hcfg)
+    eval_calls = hcfg["test_epoch"] * hcfg["test_episode"] // hcfg["test_episode_size"] + 1
+    print(f"[slice10-eval] {hcfg['tag']} at full width ({SLICE10_FEATURES[head]}), bf16 "
+          f"backbone, fp32 head, {hcfg['test_episode_size']} episodes a step, "
+          f"{hcfg['test_epoch']} epoch(s) of {hcfg['test_episode']} test episodes: accuracy "
+          f"{acc:.3f}, eval eps/s by epoch {[round(r, 2) for r in eps]}, {ms:.1f} ms a step, "
+          f"peak memory {peak_gib:.2f} GiB, BDC launches {eval_launches} (backbone calls "
+          f"{eval_calls})", flush=True)
+    if not math.isfinite(acc):
+        raise AssertionError(f"{head} eval: accuracy {acc}")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
+        loss_gpu, loss_cpu, loss_rel = flat_loss_card_vs_cpu(head)
+    print(f"[slice10-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
+          f"agreement {agree:.4f}")
+    print(f"[slice10-train] {head} fp32 flat train step loss over the first "
+          f"{FLAT_CHECK_ROWS} rows of the first batch (dropout off, NOT shipped): card "
+          f"{loss_gpu:.6f}, CPU {loss_cpu:.6f}, |Δ|/|loss| {loss_rel:.3e} (limit "
+          f"{LOGIT_REL_LIMIT:g})", flush=True)
+    if not (rel <= LOGIT_REL_LIMIT and loss_rel <= LOGIT_REL_LIMIT):
+        raise AssertionError(f"float32 {head} disagrees on the card and the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as result_root:
+        tcfg = train.slice_config(result_root, classifier=head, **FLAT_TRAIN_CUT)
+        tcfg["test_episode_size"] = FLAT_EVAL_EPISODES
+        rows, peak_gib, train_launches = run_trainer(tcfg)
+        extra = slice10_stage2(tcfg) if head == "DeepBDC_Pretrain" else None
+    steps = sum(len(r["train_losses"]) for r in rows)
+    val_steps = 2 * tcfg["test_episode"] // tcfg["test_episode_size"]
+    for r in rows:
+        print(f"[slice10-train] {tcfg['tag']} at full width, bf16, flat batches of "
+              f"{tcfg['batch_size']}, epoch {r['epoch']} of {r['train_eps_count']} steps: "
+              f"{r['train_segments_per_s']:.1f} segments/s through the backbones, step "
+              f"{r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+              f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f}, test acc "
+              f"{r['test_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches "
+              f"{train_launches}", flush=True)
+    bdc = head == "DeepBDC_Pretrain"
+    want_eval = (eval_calls, 0) if bdc else (0, 0)
+    want_train = (steps + val_steps, steps) if bdc else (0, 0)
+    if tuple(eval_launches) != want_eval or tuple(train_launches) != want_train:
+        raise AssertionError(f"{head}: BDC launches eval {eval_launches} (expected {want_eval}), "
+                             f"training {train_launches} (expected {want_train})")
+    torch.cuda.empty_cache()
+    print(f"[slice10] {head}: {time.time() - t0:.1f} s", flush=True)
+    return (tuple(eval_launches), tuple(train_launches), extra)
+
+
+def slice10_stage2(tcfg) -> tuple:
+    """DeepBDC_Pretrain's ``save_part`` checkpoint of ``emb_func`` (written by
+    the training run of ``tcfg``) loaded into DeepBDC through
+    ``pretrain_path``: the loaded backbone must equal the saved one; then
+    one eval epoch of DeepBDC's test loader.  Returns its BDC launches."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+
+    name = "{}-{}-{}-{}-{}-{}".format(
+        tcfg["classifier"]["name"], os.path.basename(tcfg["data_root"]),
+        tcfg["backbone"]["name"], tcfg["way_num"], tcfg["shot_num"], tcfg["tag"])
+    part = os.path.join(tcfg["result_root"], name, "checkpoints", "emb_func_best.pth")
+    saved = torch.load(part, map_location="cpu", weights_only=True)
+    with tempfile.TemporaryDirectory() as root:
+        dcfg = train.slice_config(root, classifier="DeepBDC", **FLAT_TRAIN_CUT)
+        dcfg.update(pretrain_path=part, test_episode_size=FLAT_EVAL_EPISODES)
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        trainer = train.Trainer(0, dcfg, device="cuda")
+        loaded = trainer.method.state_dict()
+        same = set(saved) == {k for k in loaded if k.startswith("emb_func.")} and all(
+            torch.equal(loaded[k].cpu(), v) for k, v in saved.items())
+        acc, ci = trainer._validate(0, trainer.test_loader[0], trainer.test_bank)
+        torch.cuda.synchronize()
+        launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+        steps = len(trainer.test_loader[0])
+    print(f"[slice10-stage2] DeepBDC_Pretrain's emb_func_best.pth ({len(saved)} tensors) "
+          f"loaded into DeepBDC through pretrain_path: weights equal {same}; one eval epoch "
+          f"of {dcfg['test_episode']} test episodes: accuracy {acc:.3f} ± {ci:.3f}, BDC "
+          f"launches {launches} (expected ({steps}, 0))", flush=True)
+    if not (same and math.isfinite(acc) and launches == (steps, 0)):
+        raise AssertionError("DeepBDC did not load DeepBDC_Pretrain's emb_func, or its eval failed")
+    return launches
+
+
+def slice10_phase(g: int) -> tuple:
+    """Phase 20: every head of ``SLICE10_FEATURES`` through ``slice10_cell``
+    (DeepBDC_Pretrain with its stage 2), and DeepBDC_Pretrain at ``val_type:
+    stl`` card vs CPU.  Returns DeepBDC_Pretrain's and its stage 2's BDC
+    launches: (forward, backward)."""
+    import torch
+
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t_phase = time.time()
+    forward = backward = 0
+    for head in SLICE10_FEATURES:
+        (ef, eb), (tf, tb, *_), extra = slice10_cell(head, g)
+        forward += ef + tf + (extra[0] if extra else 0)
+        backward += eb + tb + (extra[1] if extra else 0)
+    scfg = slice_config(classifier="DeepBDC_Pretrain", precision="fp32")
+    scfg["classifier"]["kwargs"]["val_type"] = "stl"
+    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(scfg, g)
+    print(f"[slice10] DeepBDC_Pretrain with val_type: stl (NO shipped config; the probe at "
+          f"penalty_C 0.1): fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError("float32 DeepBDC_Pretrain (stl) card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    print(f"[slice10] phase 20 wall {time.time() - t_phase:.1f} s; DeepBDC_Pretrain's BDC "
+          f"launches: forward {forward}, backward {backward}", flush=True)
+    print(flush=True)
+    return forward, backward
+
+
 def main() -> int:
     import torch
 
@@ -1045,7 +1262,7 @@ def main() -> int:
     # loads, the others its tensor-map loads; each path runs at every padded
     # d = 16, 32, ..., 128
     for b, d, m, shift in [
-            (1200, 64, m_main, 0), (b_main, 64, m_main, 0),
+            (1200, 64, m_main, 0), (b_main, 64, m_main, 0), (FLAT_SHAPE[0], 64, m_main, 0),
             *[(b, 64, m_main, 0) for b in sorted(b_tta | {tta_augmented})], (2, 16, 45, 0),
             (3, 100, 77, 0), (5, 128, 33, 0), (3, 128, 40, 0), (2, 100, 76, 0),
             (2, 96, 300, 0), (2, 80, 64, 0), (3, 48, 8, 0), (4, 32, 12, 0),
@@ -1065,7 +1282,7 @@ def main() -> int:
             raise AssertionError(f"bdc_pool kernel disagrees with plain at {(b, d, m)}")
         max_err = max(max_err, err_tri, err_full)
         del tri, full, ref
-        if d == 64 and b in (1200, b_main):
+        if d == 64 and b in (1200, b_main, FLAT_SHAPE[0]):
             # enough buffers that together they exceed the L2 cache twice over
             n_buf = max(1, math.ceil(2 * L2_BYTES / (4 * x.numel())))
             xs = [x] + [torch.randn((b, d, m), device="cuda", generator=gen)
@@ -1173,7 +1390,7 @@ def main() -> int:
     bwd_err = 0.0
     bwd_times = None
     for b, d, m, shift in [
-            (*TRAIN_SHAPE, 0), (2, 16, 45, 0), (3, 100, 77, 0), (5, 128, 33, 0),
+            (*TRAIN_SHAPE, 0), (*FLAT_SHAPE, 0), (2, 16, 45, 0), (3, 100, 77, 0), (5, 128, 33, 0),
             (3, 128, 40, 0), (2, 100, 76, 0), (2, 96, 300, 0), (2, 80, 64, 0),
             (3, 48, 8, 0), (4, 32, 12, 0), (2, 16, 8, 0), (2, 64, m_main, 1),
             (2, 32, 13, 0), (2, 48, 9, 0), (2, 80, 65, 0), (2, 96, 301, 0),
@@ -1196,7 +1413,7 @@ def main() -> int:
         if not (ex <= GRAD_REL_LIMIT and et <= GRAD_REL_LIMIT):
             raise AssertionError(f"bdc_pool_backward disagrees with plain at {(b, d, m)}")
         bwd_err = max(bwd_err, (gx - px).abs().max().item(), (gt - pt).abs().max().item())
-        if (b, d, m) == TRAIN_SHAPE:
+        if (b, d, m) in (TRAIN_SHAPE, FLAT_SHAPE):
             # deterministic: a second launch on the same input, the same bits
             gx2, gt2 = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
             if not (torch.equal(gx, gx2) and torch.equal(gt, gt2)):
@@ -1224,7 +1441,8 @@ def main() -> int:
             bmm_ms = time_ms(lambda: torch.bmm(*next(lfeed)))
             graph_bmm_ms = graph_ms(lambda: torch.bmm(*next(lfeed)))
             bound_ms, bound_by = bdc_backward_bound_ms(b, d, m, peaks)
-            bwd_times = (ms, plain_ms, bound_ms, bound_by)
+            if (b, d, m) == TRAIN_SHAPE:
+                bwd_times = (ms, plain_ms, bound_ms, bound_by)
             print(f"[backward] {(b, d, m)}, clusters of {cluster}: kernel {ms:.4f} ms, "
                   f"plain (autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}), eager calls over {n_buf} input buffer(s) in turn; "
@@ -1476,6 +1694,7 @@ def main() -> int:
     resnet12_phases(g)
     vit_and_meta_phases(g)
     slice9_phase(g)
+    pre_forward, pre_backward = slice10_phase(g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]
@@ -1485,7 +1704,7 @@ def main() -> int:
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc_pallas.py:23",
-        "launches": launches,
+        "launches": launches + pre_forward,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1497,7 +1716,7 @@ def main() -> int:
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool_backward.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc.py:23",
-        "launches": train_backward,
+        "launches": train_backward + pre_backward,
         "max_abs_err": bwd_err,
         "ms": bms,
         "plain_ms": bplain_ms,

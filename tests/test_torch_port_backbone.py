@@ -23,10 +23,10 @@ from audio_fewshot_tpu_torch.utils.convert import state_dict_from_jax  # noqa: E
 @pytest.fixture(autouse=True, scope="module")
 def xdist_torch_threads():
     """Under pytest-xdist, the host's cores shared out among its workers as
-    torch CPU threads while a port test module runs (each port test module
-    imports this fixture but ``test_torch_port_metric.py``, whose ADM steps
-    pass at the default count and, summed in another order with one thread,
-    exceed their limits: a gradient 7.7e-6 against 4.9e-6).  torch gives
+    torch CPU threads while a port test module runs (every port test module
+    imports this fixture; ``test_torch_port_metric.py`` holds ADM's steps
+    with float64 heads, since its float32 sums move with the thread count:
+    its module docstring says which).  torch gives
     each process one OpenMP thread per core, so the workers' threads would
     outnumber the cores many times over and wait on each other: a Conv64F
     MAML eval forward that takes 3.4 s alone took 257 s in each of six such

@@ -29,22 +29,35 @@ Tolerances:
   (ADM_KL).  ADM's float32 head (the KL of rank-19 covariances + 0.01·I,
   normalised over the batch by its mixer's BN) is held at 1e-4 on the
   logits and the running statistics (``ADM_STEP_TOLS``; measured on seeds
-  2-6: 1.2e-5 and 1.7e-5).  On the episodes of seeds 3-6 the float32
+  2-6: 1.2e-5 and 1.7e-5).  ADM's float32 checks (the whole step with a
+  float32 Conv64F, the float32 head alone) sum in an order that torch's
+  thread count sets, so they run at ``ADM_F32_THREADS`` threads whatever
+  count the module runs at: with a float32 Conv64F the layer-1 weight and
+  bias gradients, sums over 20 · 108 · 135 positions, read 1.57 and 3.16
+  times their limits with one thread and 0.16 and 0.23 with eight (a
+  float64 head leaves them at 1.57 and 3.12: the sums are the backbone's),
+  and the float32 head alone reads logits 1.17e-5 with one thread and
+  6.1e-6 with eight (its top-k cosine term's products).  ADM's whole step
+  also runs with a float64 Conv64F and a float64 head over the shared map
+  (``ADM_RUNS``).  On the episodes of seeds 3-6 the float32
   Conv64F's first-layer weight gradients read up to 1e-2 of their max in
   the JAX package's own float32 step as in the port's (float32 rounding
   through four train-mode BNs), so the float32 step is held on seed 2's
   episode and the float64 one on seeds 2 and 3;
 - the head alone on given maps (``HEAD_TOLS``): the port in float64 to
   1e-6 (``F64_TOL``) of a float64 JAX head; in float32, logits 1e-5,
-  gradients 1e-4, running statistics 1e-5.
+  gradients 1e-4, running statistics 1e-5 (ADM's at ``ADM_F32_THREADS``
+  threads).
 """
 
+import contextlib
 import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_port_backbone import xdist_torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 from flax import linen as flax_nn  # noqa: E402
@@ -298,8 +311,38 @@ def _step_reference(name, variables, seed):
             _as_port(variables, name, stats=ref_stats)), pb
 
 
-def _check_port_step(name, variables, dtype, pb, ref):
+# ADM's whole step: a float32 and a float64 Conv64F with the port's float32
+# head, and a float64 Conv64F with a float64 head over the shared map
+ADM_RUNS = ((torch.float32, None), (torch.float64, None), (torch.float64, torch.float64))
+# the torch threads ADM's float32 checks run at: their sums' order follows
+# the count (module docstring)
+ADM_F32_THREADS = 8
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """torch's CPU thread count set to ``n`` for the block, then restored."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def _adm_f32_threads(name, dtype):
+    """``ADM_F32_THREADS`` threads for ADM's float32 checks, else no change."""
+    if name == "ADM" and dtype == torch.float32:
+        return torch_threads(ADM_F32_THREADS)
+    return contextlib.nullcontext()
+
+
+def _check_port_step(name, variables, dtype, pb, ref, head_dtype=None):
     method = _port_method(name, variables, dtype).train()
+    if head_dtype is not None:
+        method.adm_layer.to(head_dtype)
+        embed = method.embed
+        method.embed = lambda batch: tuple(f.to(head_dtype) for f in embed(batch))
     loss, out = method.loss(pb, SETTING)
     loss.backward()
     named = dict(method.named_parameters())
@@ -313,13 +356,16 @@ def test_train_step_matches_jax(name, no_dropout):
     """Logits, loss, every gradient (head and backbone) and every BN's running
     statistics (ATLNet's shared ``W`` BN updated twice, query then support;
     the ADM mixer's; RelationNet's kept ones) after one train step, the port
-    in float32 and with a float64 Conv64F, against the JAX package with a
-    float64 Conv64F and a float64 head (train-mode BN is in every chain: the
-    JAX package's float32 one-pass variance is not the reference)."""
+    in float32 and with a float64 Conv64F (ADM: ``ADM_RUNS``), against the
+    JAX package with a float64 Conv64F and a float64 head (train-mode BN is
+    in every chain: the JAX package's float32 one-pass variance is not the
+    reference)."""
     variables = _jax_variables(name)
     ref, pb = _step_reference(name, variables, seed=2)
-    for dtype in (torch.float32, torch.float64):
-        _check_port_step(name, variables, dtype, pb, ref)
+    runs = ADM_RUNS if name == "ADM" else ((torch.float32, None), (torch.float64, None))
+    for dtype, head_dtype in runs:
+        with _adm_f32_threads(name, dtype):
+            _check_port_step(name, variables, dtype, pb, ref, head_dtype)
 
 
 @pytest.mark.parametrize("name", HEADS)
@@ -376,8 +422,9 @@ def test_head_step_matches_jax_float64(name, no_dropout):
         method = _port_method(name, variables).to(dtype).train()
         sup, qry = (torch.tensor(m, dtype=dtype, requires_grad=True) for m in maps)
         method.embed = lambda batch: (sup, qry)
-        loss, out = method.loss(pb, SETTING)
-        loss.backward()
+        with _adm_f32_threads(name, dtype):
+            loss, out = method.loss(pb, SETTING)
+            loss.backward()
         named = {"maps.support": sup, "maps.query": qry, **{
             k: p for k, p in method.named_parameters() if not k.startswith("emb_func.")}}
         assert len(named) == 2 + N_HEAD_PARAMS.get(name, 0)
