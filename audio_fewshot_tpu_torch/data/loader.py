@@ -10,8 +10,11 @@ The per-epoch numpy generator draws in the same order as the JAX package, so
 both packages build the same episodes from a seed.  A background thread
 builds numpy batches while the device computes.  With a segment bank
 (``data/bank.py``) the loader emits bank row ids instead of payloads.
-FINETUNING methods train on a ``FlatLoader``'s flat batches; the dual
-(episodic + flat) loader of ``dataloader_num: 2`` is not ported yet.
+FINETUNING methods train on a ``FlatLoader``'s flat batches; with
+``dataloader_num: 2`` an episodic method's train loaders are an episodic
+and a flat one over the same dataset (the trainer zips them into one step),
+a FINETUNING method's two flat ones (the trainer takes their batches in
+turn).
 """
 
 from __future__ import annotations
@@ -411,13 +414,11 @@ def get_dataloader(
     modality: str = "audio",
 ) -> List[Any]:
     """A list of loaders, as the JAX package's surface: one episodic loader,
-    or for FINETUNING training one ``FlatLoader`` of ``batch_size`` (128 by
-    default)."""
-    if mode == "train" and int(config.get("dataloader_num", 1)) > 1:
-        raise NotImplementedError(
-            "dataloader_num > 1 (the dual episodic + flat loader) is not "
-            "ported yet (ROADMAP Queue A, RENet)"
-        )
+    or for FINETUNING training ``dataloader_num`` (1 by default)
+    ``FlatLoader`` s of ``batch_size`` (128 by default), the i-th seeded
+    ``seed + i``.  For another method's training, ``dataloader_num`` n > 1
+    adds n − 1 such ``FlatLoader`` s over the episodic loader's dataset (one
+    segment bank)."""
     atq = int(config.get("augment_times_query", 1) or 1)
     if atq != 1:
         raise ValueError(
@@ -429,8 +430,10 @@ def get_dataloader(
     prefetch = int(config.get("prefetch", 2))
     if str(config.get("workers", 1)) in ("0", "0.0"):
         prefetch = 0
+    n_loaders = int(config.get("dataloader_num", 1)) if mode == "train" else 1
     if mode == "train" and model_type == ModelType.FINETUNING:
-        return [FlatLoader(dataset, int(config.get("batch_size", 128)), seed=seed)]
+        return [FlatLoader(dataset, int(config.get("batch_size", 128)), seed=seed + i)
+                for i in range(n_loaders)]
     if mode == "train":
         way, shot, query_n = config["way_num"], config["shot_num"], config["query_num"]
         episodes = int(config.get("train_episode", 500))
@@ -457,4 +460,5 @@ def get_dataloader(
             prefetch=prefetch,
             augment_times=int(config.get("augment_times", 1)),
         )
-    ]
+    ] + [FlatLoader(dataset, int(config.get("batch_size", 128)), seed=seed + i)
+         for i in range(1, n_loaders)]

@@ -7,7 +7,9 @@ arrays on the host (the same arrays, from the same seed, as the JAX
 package); ``.to(device)`` moves them to torch tensors.  Clip-level
 aggregation is then a one-hot contraction (``utils/aggregate.py``).
 FINETUNING methods train on flat classification batches instead
-(``FlatBatch``; ``IndexedFlatBatch`` with rows of a segment bank).
+(``FlatBatch``; ``IndexedFlatBatch`` with rows of a segment bank); with
+``dataloader_num: 2`` an episodic method trains on both at once
+(``DualBatch``).
 """
 
 from __future__ import annotations
@@ -142,6 +144,25 @@ class IndexedFlatBatch:
         device = torch.device(device)
         return IndexedFlatBatch(data_idx=_to_tensor(self.data_idx, device),
                                 target=_to_tensor(self.target, device))
+
+
+@dataclass
+class DualBatch:
+    """One train step's paired episodic and flat batches (``dataloader_num:
+    2``): the trainer zips the episodic and the flat loader into one model
+    call.  Each half may be its bank-index twin; ``materialize_dual_batch``
+    gathers both."""
+
+    episode: Any  # EpisodeBatch | IndexedEpisodeBatch
+    flat: Any  # FlatBatch | IndexedFlatBatch
+
+    def to(self, device, transfer_dtype: Optional[torch.dtype] = None) -> "DualBatch":
+        def put(x):
+            if isinstance(x, (IndexedEpisodeBatch, IndexedFlatBatch)):
+                return x.to(device)
+            return x.to(device, transfer_dtype)
+
+        return DualBatch(episode=put(self.episode), flat=put(self.flat))
 
 
 def materialize_flat_batch(batch, bank: torch.Tensor) -> FlatBatch:
@@ -314,3 +335,9 @@ def materialize_episode_batch(batch, bank: torch.Tensor) -> EpisodeBatch:
         query_target=batch.query_target,
         global_target=batch.global_target,
     )
+
+
+def materialize_dual_batch(batch: DualBatch, bank: torch.Tensor) -> DualBatch:
+    """Both halves of a ``DualBatch`` gathered out of ``bank``."""
+    return DualBatch(episode=materialize_episode_batch(batch.episode, bank),
+                     flat=materialize_flat_batch(batch.flat, bank))

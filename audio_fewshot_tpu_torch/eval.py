@@ -144,6 +144,28 @@ SLICE_MODELS.update({
         ("FEAT_Pretrain", "feat_pretrain_no_shipped_config", {}, _RESNET12),
         ("DeepBDC_Pretrain", "deepbdc_pretrain_5shot_iid_seed0", {"val_type": "meta"},
          SLICE_MODELS["DeepBDC"]["backbone"]))})
+# RENet on resnet12's [640, 8, 9] map, also with the fixture's dual loader
+# (``dataloader_num: 2``, flat batches of 12; no shipped config sets it);
+# FRN_Pretrain on the map (its shipped config names the plain resnet12,
+# whose map FRN_Pretrain asks for), S2M2 on Conv64F's 1600 flat features;
+# MTLPretrain and MetabaselineKendallPretrain (no shipped config) on
+# resnet12's 12800 at their defaults
+_RENET = {"classifier": {"name": "RENet", "kwargs": {"feat_dim": 640, "num_class": 25}},
+          "backbone": _RESNET12_MAP, "tag": "renet_5shot_iid_seed0"}
+SLICE_MODELS.update({
+    "RENet": _RENET,
+    "RENet:dual": {**_RENET, "dataloader_num": 2, "batch_size": 12,
+                   "tag": "renet_5shot_dual_not_shipped"},
+    "FRN_Pretrain": {"classifier": {"name": "FRN_Pretrain", "kwargs": {"num_class": 25}},
+                     "backbone": _RESNET12, "tag": "frn_pretrain_5shot_iid_seed0"},
+    "S2M2": {"classifier": {"name": "S2M2", "kwargs": {"num_class": 25}},
+             "backbone": _CONV64F, "tag": "s2m2_5shot_iid_seed0"},
+    "MTLPretrain": {"classifier": {"name": "MTLPretrain", "kwargs": {"num_class": 25}},
+                    "backbone": _RESNET12, "tag": "mtl_pretrain_no_shipped_config"},
+    "MetabaselineKendallPretrain": {
+        "classifier": {"name": "MetabaselineKendallPretrain", "kwargs": {"num_class": 25}},
+        "backbone": _RESNET12, "tag": "kendall_pretrain_no_shipped_config"},
+})
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
@@ -161,8 +183,11 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     VERSA, DMatchingNet), MTL on resnet12, a finetuning head (Baseline and
     BaselinePlus on Conv64F, NegNet, RFSModel, SKDModel on resnet12) or a
     pretrainer (MetabaselinePretrain on resnet12, DeepBDC_Pretrain on
-    resnet12Bdc): its shipped ``*_5shot_iid_seed0.yaml``; FEAT_Pretrain (no
-    shipped config) on resnet12 at its defaults.  Each with its headers, as
+    resnet12Bdc, FRN_Pretrain on resnet12, S2M2 on Conv64F), RENet on
+    resnet12's map (``"RENet:dual"``: with ``dataloader_num: 2`` and
+    ``batch_size`` 12, not shipped): its shipped ``*_5shot_iid_seed0.yaml``;
+    FEAT_Pretrain, MTLPretrain and MetabaselineKendallPretrain (no shipped
+    config) on resnet12 at their defaults.  Each with its headers, as
     a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
     ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16

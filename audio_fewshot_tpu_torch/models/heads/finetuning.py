@@ -44,6 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ...episode import EpisodeBatch, FlatBatch
 from ...registry import CLASSIFIERS
@@ -251,6 +252,7 @@ class FinetuningBase(MethodBase):
                  inner_param: Optional[Dict] = None, way_num: int = 5, **kwargs):
         super().__init__(emb_func, **kwargs)
         self.num_class = num_class
+        self.feat_dim = feat_dim
         self.way_num = way_num
         inner = dict(inner_param or {})
         self.inner_steps = int(inner.get("inner_train_iter", 20))
@@ -261,7 +263,12 @@ class FinetuningBase(MethodBase):
         # a shipped inner_optim without weight_decay (BaselinePlus) gets 1e-3
         self.inner_wd = float(opt.get("weight_decay", 1e-3) or 0.0)
         self.teacher: Optional[MethodBase] = None
-        self.classifier = dense(feat_dim, num_class, bias=self.head_kind == "linear")
+        self.classifier = self._global_head()
+
+    def _global_head(self) -> Optional[nn.Module]:
+        """``classifier``: the global head of ``head_kind`` (None where a
+        subclass trains another head)."""
+        return dense(self.feat_dim, self.num_class, bias=self.head_kind == "linear")
 
     # -- global classification (training) -------------------------------------------------
 
@@ -290,8 +297,7 @@ class FinetuningBase(MethodBase):
         return self.teacher.global_logits(self.teacher.flat_features(x))
 
     def loss(self, batch: FlatBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
-        if not isinstance(batch, FlatBatch):
-            raise TypeError("FINETUNING methods train on flat batches (episode.FlatBatch)")
+        flat_only(batch)
         logits = self.global_logits(self.flat_features(batch.data))
         loss = self._train_loss(logits, batch.target)
         return loss, LossOutput(logits, {"acc": _accuracy(logits, batch.target)})
@@ -344,6 +350,12 @@ class FinetuningBase(MethodBase):
     def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
         sup_f, qry_f = self.embed(batch)
         return self.episode_head_logits(sup_f, batch.support_target, qry_f, setting.way)
+
+
+def flat_only(batch) -> None:
+    """Raise unless ``batch`` is a ``FlatBatch`` (FINETUNING training)."""
+    if not isinstance(batch, FlatBatch):
+        raise TypeError("FINETUNING methods train on flat batches (episode.FlatBatch)")
 
 
 def _accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -454,8 +466,7 @@ class SKDModel(_ProbeEval, FinetuningBase):
         return batch_size * (3 if self._distills() else 4)
 
     def loss(self, batch: FlatBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
-        if not isinstance(batch, FlatBatch):
-            raise TypeError("FINETUNING methods train on flat batches (episode.FlatBatch)")
+        flat_only(batch)
         x, b = batch.data, batch.data.shape[0]
         if self._distills():
             copies = torch.cat([x, torch.flip(x, (-2, -1))])

@@ -20,8 +20,9 @@ train score is a ``torch.autograd.Function`` whose backward recomputes each
 strip: autograd through the strips would keep every strip's [E, G, way,
 pairs] activations (≈ 82 GB at one 50-query episode).
 
-``MetabaselineKendallPretrain`` (the global-CE pretrainer) is a FINETUNING
-method and is not ported yet (ROADMAP Queue A item 8).
+``MetabaselineKendallPretrain`` trains the backbone with the finetuning
+family's global linear CE on flat batches and validates with the exact
+score against the class prototypes.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from ...episode import EpisodeBatch, segment_targets
 from ...registry import CLASSIFIERS
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
+from .finetuning import FinetuningBase
 from .proto_net import prototypes
 
 #: elements of a strip's largest temporary (float32): 2²⁷ = 512 MiB in eval,
@@ -157,3 +159,13 @@ class MetaBaselineKendall(MethodBase):
 
 # the reference exports the class as DiffKendall too
 CLASSIFIERS.register_alias("DiffKendall", "MetaBaselineKendall")
+
+
+@CLASSIFIERS.register("MetabaselineKendallPretrain")
+class MetabaselineKendallPretrain(FinetuningBase):
+    """Global-CE pretraining (the linear ``classifier``), exact-Kendall
+    validation against the class prototypes."""
+
+    def forward(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
+        sup, qry = self.embed(batch)
+        return kendall_logits(qry, prototypes(sup.float(), setting.way, setting.shot), exact=True)

@@ -6,7 +6,9 @@ steps of one episodic loader (random segment per clip, optional random
 spectrogram augmentation, loss, backward, optimizer step; the LR scale is
 set once per epoch) or, for a FINETUNING method, of one ``FlatLoader``
 (flat batches of ``batch_size`` segments, no augmentation, an epoch of
-``len(FlatSampler)`` steps), then a validation and a test pass (per-episode
+``len(FlatSampler)`` steps) or, with ``dataloader_num: 2``, of both at
+once (each step one ``DualBatch``: the two loaders zipped, the epoch as long
+as the shorter, both halves augmented), then a validation and a test pass (per-episode
 majority-vote clip accuracy and a 95 % CI), then the checkpoints: best (by
 val accuracy; the best test accuracy is the one AT that epoch), every
 ``save_interval`` epochs, and last (with the optimizer and scheduler
@@ -14,7 +16,7 @@ state, which ``resume`` reads back).  It runs on ``cuda`` unless ``device``
 says otherwise, and raises when no card is there.
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP item):
-``profile_steps``, IFSL's featuring pass and ``dataloader_num > 1``.
+``profile_steps`` and IFSL's featuring pass.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from .config import Config, save_config
-from .data import get_dataloader, get_mean_std
+from .data import FlatLoader, get_dataloader, get_mean_std
 from .data.bank import resolve_transfer_dtype, setup_segment_banks
-from .episode import (EpisodeBatch, FlatBatch, IndexedFlatBatch, materialize_episode_batch,
-                      materialize_flat_batch)
+from .episode import (DualBatch, EpisodeBatch, FlatBatch, IndexedFlatBatch,
+                      materialize_dual_batch, materialize_episode_batch, materialize_flat_batch)
 from .eval import SLICE_MODELS
 from .models import build_method, eval_setting, train_setting
 from .models.backbones.layers import seed_dropout
@@ -124,11 +126,12 @@ class Trainer:
         self.augment = bool(config.get("augment", False)) and model_type != ModelType.FINETUNING
         self.aug_mean, self.aug_std = get_mean_std(config, "train")
         self.transfer_dtype = resolve_transfer_dtype(config.get("transfer_dtype"))
+        # the dual loader's flat half shares the episodic loader's dataset
         banks = setup_segment_banks(
-            config, [self.train_loader[0], self.val_loader[0], self.test_loader[0]],
+            config, [*self.train_loader, self.val_loader[0], self.test_loader[0]],
             self.device, self.transfer_dtype, self.logger,
         )
-        self.train_bank, self.val_bank, self.test_bank = banks
+        self.train_bank, self.val_bank, self.test_bank = banks[0], banks[-2], banks[-1]
 
         self.train_meter = AverageMeter(
             "train", ["batch_time", "data_time", "calc_time", "loss", "acc"], self.writer)
@@ -184,22 +187,63 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _device_batch(self, host_batch, bank):
-        """An ``EpisodeBatch`` or ``FlatBatch`` on the device (gathered from
-        ``bank`` when the loader emits bank rows)."""
-        flat = isinstance(host_batch, (FlatBatch, IndexedFlatBatch))
+        """An ``EpisodeBatch``, ``FlatBatch`` or ``DualBatch`` on the device
+        (gathered from ``bank`` when the loaders emit bank rows)."""
         if bank is not None:
-            materialize = materialize_flat_batch if flat else materialize_episode_batch
+            if isinstance(host_batch, DualBatch):
+                materialize = materialize_dual_batch
+            elif isinstance(host_batch, (FlatBatch, IndexedFlatBatch)):
+                materialize = materialize_flat_batch
+            else:
+                materialize = materialize_episode_batch
             return materialize(host_batch.to(self.device), bank)
         return host_batch.to(self.device, self.transfer_dtype)
 
-    def _augment_batch(self, batch: EpisodeBatch, gen: torch.Generator) -> EpisodeBatch:
-        """One random augmentation type for the support and one for the
-        query of a step, with per-segment values."""
+    def _augment_batch(self, batch, gen: torch.Generator):
+        """One random augmentation type for the support, one for the query
+        and, in a ``DualBatch``, one for the flat half of a step, with
+        per-segment values."""
         def aug(x):
             flat = x.reshape((-1,) + x.shape[2:])
             return augment_batch_one_type(flat, self.aug_mean, self.aug_std, gen).reshape(x.shape)
 
+        if isinstance(batch, DualBatch):
+            return DualBatch(episode=self._augment_batch(batch.episode, gen),
+                             flat=FlatBatch(data=augment_batch_one_type(
+                                 batch.flat.data, self.aug_mean, self.aug_std, gen),
+                                 target=batch.flat.target))
         return batch.replace(support=aug(batch.support), query=aug(batch.query))
+
+    def _dual(self) -> bool:
+        """An episodic loader paired with a flat one (``dataloader_num: 2``
+        for an episodic method)."""
+        return len(self.train_loader) > 1 and not isinstance(self.train_loader[0], FlatLoader)
+
+    def _steps_per_epoch(self) -> int:
+        """Train steps an epoch: the loaders are zipped, as long as the
+        shortest; without a pair each zipped batch is a step of its own."""
+        shortest = min(len(ld) for ld in self.train_loader)
+        return shortest if self._dual() else shortest * len(self.train_loader)
+
+    def _host_batches(self, epoch: int):
+        """The epoch's host batches: the loaders zipped, as long as the
+        shortest, each zipped batch a step (FINETUNING with ``dataloader_num``
+        > 1: the flat loaders' batches in turn); an episodic and a flat
+        loader (``dataloader_num: 2``) zipped into one ``DualBatch`` a step
+        (the truncation said in the log at epoch 0 when the flat one is the
+        shorter)."""
+        loaders = self.train_loader
+        if not self._dual():
+            return (b for batches in zip(*(ld.epoch(epoch) for ld in loaders)) for b in batches)
+        n_ep, n_flat = len(loaders[0]), len(loaders[1])
+        if epoch == 0 and n_flat < n_ep:
+            self.logger.info(
+                "dual-loader epoch truncated to %d steps: the global-flat companion "
+                "(%d batches of batch_size %s) is shorter than the episodic loader "
+                "(%d) — reference zip semantics (trainer.py:159)",
+                n_flat, n_flat, self.config.get("batch_size", 128), n_ep)
+        return (DualBatch(episode=e, flat=f)
+                for e, f in zip(loaders[0].epoch(epoch), loaders[1].epoch(epoch)))
 
     def _train_step(self, batch: EpisodeBatch) -> Dict[str, torch.Tensor]:
         loss, out = self.method.loss(batch, self.train_setting)
@@ -252,7 +296,7 @@ class Trainer:
         log_interval = int(cfg.get("log_interval", 100))
         flat = self.method.model_type == ModelType.FINETUNING
         episode_size = 1 if flat else int(cfg.get("episode_size", 1))
-        n_steps = len(self.train_loader[0])
+        n_steps = self._steps_per_epoch()
         # augmentation and dropout draws per epoch: a resumed run draws what
         # an uninterrupted one would.  The dropout seed is the first draw of
         # the epoch's stream, so no two streams share a seed
@@ -261,7 +305,7 @@ class Trainer:
         self.method.train()
         losses: List[float] = []
         t_epoch = t_end = time.time()
-        for step, host_batch in enumerate(self.train_loader[0].epoch(epoch)):
+        for step, host_batch in enumerate(self._host_batches(epoch)):
             self.writer.set_step(epoch * n_steps + step)
             meter.update("data_time", time.time() - t_end)
             t0 = time.time()

@@ -12,13 +12,18 @@ DropBlock ramp counters (``batch_stats[layer{3,4}]["num_batches_tracked"]``
 → ``layer{3,4}.0.num_batches_tracked``, int64) where the variables hold
 them, which the JAX package's inverter drops.  The heads with parameters
 (ADM, ConvMNet, ATLNet, RelationNet, MetaBaseline, FEAT, FRN, CAN, CPEANet,
-R2D2 and R2D2MCL, the MAML family, MTL, MeTAL, LEO, VERSA, DMatchingNet, and
-the global ``classifier`` (and SKDModel's ``rot_classifier``) of the
-finetuning family and the pretrainers) map onto the reference torch names, the port's copy of ``invert_{adm,
+R2D2 and R2D2MCL, the MAML family, MTL, MeTAL, LEO, VERSA, DMatchingNet,
+RENet, and the global ``classifier`` (and SKDModel's and S2M2's
+``rot_classifier``) of the finetuning family and the pretrainers,
+FRN_Pretrain's ``frn_layer`` and MTLPretrain's ``pre_fc``) map onto the
+reference torch names, the port's copy of ``invert_{adm,
 convmnet,atlnet,relationnet,metabaseline,feat,frn,can,cpea,r2d2,maml,mtl,
-leo,versa,dmatchingnet}_head_params``, ``invert_metal_per_step_params`` and
-``_invert_lstm_cell`` in ``tools/cross_framework_parity.py`` (MeTAL's
-default path has no reference counterpart: flax's names).  The variables arrive as nested
+leo,versa,dmatchingnet,renet,frn_pretrain,mtl_pretrain}_head_params``,
+``invert_metal_per_step_params`` and ``_invert_lstm_cell`` in
+``tools/cross_framework_parity.py`` (MeTAL's default path has no reference
+counterpart: flax's names; S2M2's cosine head keeps the effective weight as
+``classifier.weight``, where the reference splits it into ``weight_g`` and
+``weight_v``).  The variables arrive as nested
 dicts of numpy arrays, so this module needs no JAX.
 """
 
@@ -389,6 +394,61 @@ def _dmatchingnet_head(params, stats, state) -> None:
             state[f"{pre}.FCE.lstmcell.{key}"] = val
 
 
+def _renet_head(params, stats, state) -> None:
+    """RENet: ``scr`` (``conv_in`` / ``bn_in``, ``conv{1,2}`` / ``bn{1,2}``,
+    ``conv_out`` / ``bn_out``) → ``scr_layer.model.1.{conv1x1_in, conv1,
+    conv2, conv1x1_out}.{0,1}``; ``cca`` (``cca_1x1`` / ``cca_bn``, each
+    ``cca_module.sep{1,2}``'s ``conv_uv`` / ``bn_uv``, ``conv_hw`` /
+    ``bn_hw``, ``proj`` / ``bn_proj``) → ``cca_layer.cca_1x1.{0,1}``,
+    ``cca_layer.cca_module.conv.{0,2}.{conv2, conv1, proj}.{0,1}``; ``fc``.
+    3 × 3 kernels over the (u, v) or (h, w) plane become the reference's
+    (1, k, k) or (k, k, 1) Conv3d kernels; running statistics default to 0
+    and 1 where the variables hold none."""
+    def bn(key, p, s):
+        _head_bn(state, key, p["BatchNorm_0"], (s or {}).get("BatchNorm_0", {}))
+
+    scr_p, scr_s = params["scr"], stats.get("scr", {})
+    base = "scr_layer.model.1"
+    state[f"{base}.conv1x1_in.0.weight"] = _conv(scr_p["conv_in"]["kernel"])
+    bn(f"{base}.conv1x1_in.1", scr_p["bn_in"], scr_s.get("bn_in"))
+    for i in ("1", "2"):
+        state[f"{base}.conv{i}.0.weight"] = _conv(scr_p["conv" + i]["kernel"])[:, :, None]
+        bn(f"{base}.conv{i}.1", scr_p["bn" + i], scr_s.get("bn" + i))
+    state[f"{base}.conv1x1_out.0.weight"] = _conv(scr_p["conv_out"]["kernel"])
+    bn(f"{base}.conv1x1_out.1", scr_p["bn_out"], scr_s.get("bn_out"))
+    cca_p, cca_s = params["cca"], stats.get("cca", {})
+    state["cca_layer.cca_1x1.0.weight"] = _conv(cca_p["cca_1x1"]["kernel"])
+    bn("cca_layer.cca_1x1.1", cca_p["cca_bn"], cca_s.get("cca_bn"))
+    for name, idx in (("sep1", 0), ("sep2", 2)):
+        sep, seps = cca_p["cca_module"][name], cca_s.get("cca_module", {}).get(name, {})
+        pre = f"cca_layer.cca_module.conv.{idx}"
+        state[f"{pre}.conv2.0.weight"] = _conv(sep["conv_uv"]["kernel"])[..., None]
+        bn(f"{pre}.conv2.1", sep["bn_uv"], seps.get("bn_uv"))
+        state[f"{pre}.conv1.0.weight"] = _conv(sep["conv_hw"]["kernel"])[:, :, None]
+        bn(f"{pre}.conv1.1", sep["bn_hw"], seps.get("bn_hw"))
+        if "proj" in sep:
+            state[f"{pre}.proj.0.weight"] = _conv(sep["proj"]["kernel"])
+            bn(f"{pre}.proj.1", sep["bn_proj"], seps.get("bn_proj"))
+    _linear_entries(state, "fc", params["fc"])
+
+
+def _frn_pretrain_head(params, stats, state) -> None:
+    """FRN_Pretrain: ``frn_head``'s ``scale`` (a scalar) / ``r`` / ``cat_mat``
+    → ``frn_layer.scale`` [1] / ``frn_layer.r`` / ``frn_layer.cat_mat``."""
+    head = params["frn_head"]
+    state["frn_layer.scale"] = np.asarray(head["scale"]).reshape(1)
+    state["frn_layer.r"] = np.asarray(head["r"])
+    state["frn_layer.cat_mat"] = np.asarray(head["cat_mat"])
+
+
+def _mtl_pretrain_head(params, stats, state) -> None:
+    """MTLPretrain: the ``classifier``'s ``fc1`` / ``fc2`` → ``pre_fc.0`` /
+    ``pre_fc.2``."""
+    head = params["classifier"]
+    _linear_entries(state, "pre_fc.0", head["fc1"])
+    _linear_entries(state, "pre_fc.2", head["fc2"])
+
+
 def _global_head(params, stats, state) -> None:
     """The finetuning family's and the pretrainers' global head: the
     ``classifier`` Dense (beside ``emb_func``) → ``classifier`` (no bias on
@@ -420,9 +480,13 @@ _HEAD_CONVERTERS = {
     "LEO": _leo_head,
     "VERSA": _versa_head,
     "DMatchingNet": _dmatchingnet_head,
+    "RENet": _renet_head,
+    "FRN_Pretrain": _frn_pretrain_head,
+    "MTLPretrain": _mtl_pretrain_head,
     **{name: _global_head for name in (
-        "Baseline", "BaselinePlus", "NegNet", "RFSModel", "SKDModel", "MetabaselinePretrain",
-        "FEAT_Pretrain", "DeepBDC_Pretrain")},
+        "Baseline", "BaselinePlus", "NegNet", "RFSModel", "SKDModel", "S2M2",
+        "MetabaselinePretrain", "MetabaselineKendallPretrain", "FEAT_Pretrain",
+        "DeepBDC_Pretrain")},
 }
 
 

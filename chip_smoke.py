@@ -50,7 +50,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-20, which run before it);
+   (printed after phases 9-21, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -140,6 +140,19 @@ Phases (any failure ends the script with a non-zero exit code):
    ``pretrain_path`` (the weights held equal) for one eval epoch, and
    DeepBDC_Pretrain with ``val_type: stl`` (no shipped config) runs card vs
    CPU.
+21. RENet and the last pretrainers, each its shipped ``*_5shot_iid_seed0``
+   at full width: RENet on resnet12's [640, 8, 9] map (SCR and CCA) through
+   ``Test`` at phase 15's cut (one epoch of 64 test episodes, 16 a step:
+   eps/s, ms a step, peak memory), one float32 episode card vs CPU, one
+   training epoch at phase 13's cut and the same epoch with the dual
+   loader (``dataloader_num: 2``, flat batches of 12, from
+   ``config/kos_fixture/renet_5shot.yaml``; NOT shipped traffic), each with
+   one float32 train step's loss card vs CPU (DropBlock off); FRN_Pretrain
+   (resnet12's map) and S2M2 (Conv64F's 1600 flat features) as phase 20's
+   cells (eval, card vs CPU, one flat epoch of 7 steps of 128, a flat
+   step's loss card vs CPU); MTLPretrain and MetabaselineKendallPretrain (no
+   shipped config) one eval step of 16 episodes and one float32 episode
+   card vs CPU.  No BDC kernel may launch in any of these cells.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -251,6 +264,20 @@ FLAT_EVAL_EPISODES = 4
 FLAT_CHECK_ROWS = 32
 # phase 20's flat training batch through resnet12Bdc's BDC pool
 FLAT_SHAPE = (128, 64, 304)
+# phase 21: the last pretrainers and RENet, with the features each reads
+SLICE11_FEATURES = {
+    "FRN_Pretrain": "resnet12's [640, 8, 9] map; 25 x 72 rows of cat_mat in training",
+    "S2M2": _CONV_FLAT + "; mixup + 4 flips (640 rows a step); a cosine head adapted 140 "
+            "SGD steps an episode",
+    "MTLPretrain": _RESNET_FLAT + "; a linear learner from zero, 5 gradient steps; NO "
+                   "shipped config",
+    "MetabaselineKendallPretrain": _RESNET_FLAT + "; exact Kendall against the prototypes; "
+                                   "NO shipped config",
+}
+RENET_FEATURES = "resnet12's [640, 8, 9] map; SCR 5 x 5 and CCA, one episode at a time"
+# MTLPretrain's and MetabaselineKendallPretrain's eval: one step of 16 episodes
+ONE_STEP_CUT = {"test_episode": 16, "test_epoch": 1}
+
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
 # Recorded, not measured by this script: the kernel's time before its redesign
@@ -1012,22 +1039,17 @@ def slice9_phase(g: int) -> None:
     print(flush=True)
 
 
-def flat_loss_card_vs_cpu(head: str) -> tuple:
-    """One flat train step's loss of the same float32 model (dropout off,
-    NOT the shipped rate) on the card and on the CPU, over the first
-    ``FLAT_CHECK_ROWS`` rows of the first batch of the head's train
-    loader: (card loss, CPU loss, |Δ| / |CPU loss|)."""
+def loss_card_vs_cpu(cfg, batch) -> tuple:
+    """One train step's loss of the same float32 model of ``cfg`` (dropout
+    and DropBlock off, NOT the shipped rate) on the card and on the CPU over
+    the host ``batch``: (card loss, CPU loss, |Δ| / |CPU loss|)."""
     import torch
 
-    from audio_fewshot_tpu_torch.data import get_dataloader
-    from audio_fewshot_tpu_torch.episode import FlatBatch
-    from audio_fewshot_tpu_torch.eval import slice_config
     from audio_fewshot_tpu_torch.models import build_method, train_setting
     from audio_fewshot_tpu_torch.models.backbones.layers import Dropout
-    from audio_fewshot_tpu_torch.models.base import ModelType
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
-    cfg = slice_config(classifier=head, precision="fp32")
+    cfg = copy.deepcopy(cfg)
     if cfg["backbone"]["name"] != "Conv64F":
         cfg["backbone"]["kwargs"]["drop_rate"] = 0.0
     init_seed(int(cfg["seed"]))
@@ -1036,21 +1058,35 @@ def flat_loss_card_vs_cpu(head: str) -> tuple:
         if isinstance(module, Dropout):
             module.rate = 0.0
     method_gpu = copy.deepcopy(method_cpu).to("cuda")
-    batch = next(iter(get_dataloader(cfg, "train", ModelType.FINETUNING)[0].epoch(0)))
-    batch = FlatBatch(data=batch.data[:FLAT_CHECK_ROWS], target=batch.target[:FLAT_CHECK_ROWS])
     setting = train_setting(cfg)
-    on_gpu = method_gpu.loss(batch.to("cuda"), setting)[0].item()
-    on_cpu = method_cpu.loss(batch.to("cpu"), setting)[0].item()
+    with torch.no_grad():
+        on_gpu = method_gpu.loss(batch.to("cuda"), setting)[0].item()
+        on_cpu = method_cpu.loss(batch.to("cpu"), setting)[0].item()
     return on_gpu, on_cpu, abs(on_gpu - on_cpu) / abs(on_cpu)
 
 
-def slice10_cell(head: str, g: int) -> tuple:
-    """Phase 20's cells of one head: eval through ``Test``, one float32
-    episode card vs CPU, one flat training epoch, one flat train step's
-    loss card vs CPU.  Returns the BDC launches of its eval and of its
-    training (each counted from 0) and the steps behind them: ((eval
-    forward, eval backward, eval backbone calls), (train forward, train
-    backward, train steps, val and test steps))."""
+def flat_loss_card_vs_cpu(head: str) -> tuple:
+    """``loss_card_vs_cpu`` of the head's float32 eval cell over the first
+    ``FLAT_CHECK_ROWS`` rows of the first batch of its train loader."""
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.episode import FlatBatch
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.models.base import ModelType
+
+    cfg = slice_config(classifier=head, precision="fp32")
+    batch = next(iter(get_dataloader(cfg, "train", ModelType.FINETUNING)[0].epoch(0)))
+    batch = FlatBatch(data=batch.data[:FLAT_CHECK_ROWS], target=batch.target[:FLAT_CHECK_ROWS])
+    return loss_card_vs_cpu(cfg, batch)
+
+
+def slice10_cell(head: str, g: int, label: str = "slice10", what: str = None) -> tuple:
+    """Phase 20's cells of one head (phase 21's for FRN_Pretrain and S2M2,
+    ``label`` their log's tag and ``what`` the features they read): eval
+    through ``Test``, one float32 episode card vs CPU, one flat training
+    epoch, one flat train step's loss card vs CPU.  Returns the BDC launches
+    of its eval and of its training (each counted from 0) and the steps
+    behind them: ((eval forward, eval backward, eval backbone calls), (train
+    forward, train backward, train steps, val and test steps))."""
     import torch
 
     from audio_fewshot_tpu_torch import train
@@ -1063,7 +1099,7 @@ def slice10_cell(head: str, g: int) -> tuple:
     hcfg = slice_config(classifier=head, **(EVAL_CUT if conv else RESNET_EVAL_CUT))
     eps, ms, peak_gib, acc, eval_launches = run_test(hcfg)
     eval_calls = hcfg["test_epoch"] * hcfg["test_episode"] // hcfg["test_episode_size"] + 1
-    print(f"[slice10-eval] {hcfg['tag']} at full width ({SLICE10_FEATURES[head]}), bf16 "
+    print(f"[{label}-eval] {hcfg['tag']} at full width ({what or SLICE10_FEATURES[head]}), bf16 "
           f"backbone, fp32 head, {hcfg['test_episode_size']} episodes a step, "
           f"{hcfg['test_epoch']} epoch(s) of {hcfg['test_episode']} test episodes: accuracy "
           f"{acc:.3f}, eval eps/s by epoch {[round(r, 2) for r in eps]}, {ms:.1f} ms a step, "
@@ -1076,10 +1112,10 @@ def slice10_cell(head: str, g: int) -> tuple:
     with cudnn_deterministic():
         rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
         loss_gpu, loss_cpu, loss_rel = flat_loss_card_vs_cpu(head)
-    print(f"[slice10-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+    print(f"[{label}-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
           f"agreement {agree:.4f}")
-    print(f"[slice10-train] {head} fp32 flat train step loss over the first "
+    print(f"[{label}-train] {head} fp32 flat train step loss over the first "
           f"{FLAT_CHECK_ROWS} rows of the first batch (dropout off, NOT shipped): card "
           f"{loss_gpu:.6f}, CPU {loss_cpu:.6f}, |Δ|/|loss| {loss_rel:.3e} (limit "
           f"{LOGIT_REL_LIMIT:g})", flush=True)
@@ -1094,7 +1130,7 @@ def slice10_cell(head: str, g: int) -> tuple:
     steps = sum(len(r["train_losses"]) for r in rows)
     val_steps = 2 * tcfg["test_episode"] // tcfg["test_episode_size"]
     for r in rows:
-        print(f"[slice10-train] {tcfg['tag']} at full width, bf16, flat batches of "
+        print(f"[{label}-train] {tcfg['tag']} at full width, bf16, flat batches of "
               f"{tcfg['batch_size']}, epoch {r['epoch']} of {r['train_eps_count']} steps: "
               f"{r['train_segments_per_s']:.1f} segments/s through the backbones, step "
               f"{r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
@@ -1108,7 +1144,7 @@ def slice10_cell(head: str, g: int) -> tuple:
         raise AssertionError(f"{head}: BDC launches eval {eval_launches} (expected {want_eval}), "
                              f"training {train_launches} (expected {want_train})")
     torch.cuda.empty_cache()
-    print(f"[slice10] {head}: {time.time() - t0:.1f} s", flush=True)
+    print(f"[{label}] {head}: {time.time() - t0:.1f} s", flush=True)
     return (tuple(eval_launches), tuple(train_launches), extra)
 
 
@@ -1179,6 +1215,127 @@ def slice10_phase(g: int) -> tuple:
           f"launches: forward {forward}, backward {backward}", flush=True)
     print(flush=True)
     return forward, backward
+
+
+def renet_cells(g: int) -> None:
+    """Phase 21's RENet cells: eval through ``Test`` at phase 15's cut, one
+    float32 episode card vs CPU, one episodic training epoch at phase 13's
+    cut, and the same epoch with the dual loader (``RENet:dual``:
+    ``dataloader_num: 2``, flat batches of 12; NOT shipped traffic), each
+    with one train step's loss card vs CPU (the episodic batch; the
+    ``DualBatch`` of it and the first 12 flat rows).  BDC launches 0."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.data import get_dataloader
+    from audio_fewshot_tpu_torch.episode import DualBatch
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hcfg = slice_config(classifier="RENet", **RESNET_EVAL_CUT)
+    eps, ms, peak_gib, acc, launches = run_test(hcfg)
+    print(f"[slice11-eval] {hcfg['tag']} at full width ({RENET_FEATURES}), bf16 backbone, "
+          f"fp32 head, {hcfg['test_episode_size']} episodes a step, {hcfg['test_epoch']} "
+          f"epoch(s) of {hcfg['test_episode']} test episodes: accuracy {acc:.3f}, eval eps/s "
+          f"by epoch {[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory "
+          f"{peak_gib:.2f} GiB, BDC launches {launches} (expected 0)", flush=True)
+    if not math.isfinite(acc) or any(launches):
+        raise AssertionError(f"RENet eval: accuracy {acc}, BDC launches {launches}")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(slice_config(classifier="RENet", precision="fp32"), g)
+    print(f"[slice11-eval] RENet fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
+          f"agreement {agree:.4f}", flush=True)
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError("float32 RENet card logits disagree with the CPU")
+    for cell in ("RENet", "RENet:dual"):
+        torch.backends.cudnn.allow_tf32 = False
+        lcfg = slice_config(classifier=cell, precision="fp32")
+        loaders = get_dataloader(lcfg, "train")
+        batch = next(iter(loaders[0].epoch(0)))
+        if len(loaders) > 1:
+            batch = DualBatch(episode=batch, flat=next(iter(loaders[1].epoch(0))))
+        with cudnn_deterministic():
+            loss_gpu, loss_cpu, loss_rel = loss_card_vs_cpu(lcfg, batch)
+        print(f"[slice11-train] {cell} fp32 train step loss over the first "
+              f"{'dual ' if len(loaders) > 1 else ''}batch (DropBlock off, NOT shipped): card "
+              f"{loss_gpu:.6f}, CPU {loss_cpu:.6f}, |Δ|/|loss| {loss_rel:.3e} (limit "
+              f"{LOGIT_REL_LIMIT:g})", flush=True)
+        if not loss_rel <= LOGIT_REL_LIMIT:
+            raise AssertionError(f"float32 {cell} train loss disagrees on the card and the CPU")
+        torch.backends.cudnn.allow_tf32 = True
+        with tempfile.TemporaryDirectory() as result_root:
+            tcfg = train.slice_config(result_root, classifier=cell, **HEAD_TRAIN_CUT)
+            rows, peak_gib, launches = run_trainer(tcfg)
+        for r in rows:
+            flat = (f" + a flat batch of {tcfg['batch_size']} (not shipped traffic)"
+                    if cell == "RENet:dual" else "")
+            print(f"[slice11-train] {tcfg['tag']} at full width, bf16, augment on, one "
+                  f"episode{flat} a step, epoch {r['epoch']} of {r['train_eps_count']} steps: "
+                  f"{r['train_eps']:.2f} train eps/s, step {r['step_ms']:.1f} ms, loss "
+                  f"{r['train_losses'][0]:.4f} -> {r['train_losses'][-1]:.4f}, val acc "
+                  f"{r['val_acc']:.3f}, test acc {r['test_acc']:.3f}; peak memory "
+                  f"{peak_gib:.2f} GiB; BDC launches {launches} (expected 0)", flush=True)
+        if any(launches):
+            raise AssertionError(f"{cell} training: BDC launches {launches}")
+        torch.cuda.empty_cache()
+    print(f"[slice11] RENet: {time.time() - t0:.1f} s", flush=True)
+
+
+def one_step_cell(head: str, g: int) -> None:
+    """A head with no shipped config: one eval step through ``Test``
+    (``ONE_STEP_CUT``; BDC launches 0) and one float32 episode card vs
+    CPU."""
+    import torch
+
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hcfg = slice_config(classifier=head, **ONE_STEP_CUT)
+    eps, ms, peak_gib, acc, launches = run_test(hcfg)
+    print(f"[slice11-eval] {hcfg['tag']} at full width ({SLICE11_FEATURES[head]}), bf16 "
+          f"backbone, fp32 head, one step of {hcfg['test_episode_size']} episodes: accuracy "
+          f"{acc:.3f}, eval eps/s {[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak "
+          f"memory {peak_gib:.2f} GiB, BDC launches {launches} (expected 0)", flush=True)
+    if not math.isfinite(acc) or any(launches):
+        raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {launches}")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    gh = KENDALL_CPU_QUERIES if head == "MetabaselineKendallPretrain" else g
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), gh)
+    print(f"[slice11-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}; "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError(f"float32 {head} card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def slice11_phase(g: int) -> None:
+    """Phase 21: RENet (``renet_cells``), FRN_Pretrain and S2M2 through
+    ``slice10_cell`` (their BDC launches must be 0), MTLPretrain and
+    MetabaselineKendallPretrain through ``one_step_cell``."""
+    import torch
+
+    t_phase = time.time()
+    renet_cells(g)
+    for head in ("FRN_Pretrain", "S2M2"):
+        (ef, eb), (tf, tb, *_), _ = slice10_cell(head, g, "slice11", SLICE11_FEATURES[head])
+        if any((ef, eb, tf, tb)):
+            raise AssertionError(f"{head}: BDC launches in phase 21")
+    for head in ("MTLPretrain", "MetabaselineKendallPretrain"):
+        one_step_cell(head, g)
+    torch.cuda.empty_cache()
+    print(f"[slice11] phase 21 wall {time.time() - t_phase:.1f} s; BDC launches 0 in every "
+          f"cell", flush=True)
+    print(flush=True)
 
 
 def main() -> int:
@@ -1695,6 +1852,7 @@ def main() -> int:
     vit_and_meta_phases(g)
     slice9_phase(g)
     pre_forward, pre_backward = slice10_phase(g)
+    slice11_phase(g)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[b_main]

@@ -104,13 +104,17 @@ CASES = {
     "SKDModel": ("SKDModel", "resnet12", {"gamma": 1.0, "alpha": 0.1}),
     "SKDModel:gen1": ("SKDModel", "resnet12", {"gamma": 1.0, "alpha": 0.1, "is_distill": True}),
 }
-# the pretrainers (``test_torch_port_pretrains.py`` runs their steps)
+# the pretrainers (``test_torch_port_pretrains.py`` and
+# ``test_torch_port_pretrains2.py`` run their steps)
 PRETRAIN_CASES = {
     "MetabaselinePretrain": ("MetabaselinePretrain", "resnet12", {}),
     "FEAT_Pretrain": ("FEAT_Pretrain", "resnet12", {}),
     "DeepBDC_Pretrain": ("DeepBDC_Pretrain", "resnet12Bdc", {"val_type": "meta"}),
     "DeepBDC_Pretrain:stl": ("DeepBDC_Pretrain", "resnet12Bdc", {"val_type": "stl"}),
     "DeepBDC_Pretrain:distill": ("DeepBDC_Pretrain", "resnet12Bdc", {"is_distill": True}),
+    # ``test_torch_port_pretrains2.py``'s
+    "MTLPretrain": ("MTLPretrain", "resnet12", {}),
+    "MetabaselineKendallPretrain": ("MetabaselineKendallPretrain", "resnet12", {}),
 }
 ALL_CASES = {**CASES, **PRETRAIN_CASES}
 

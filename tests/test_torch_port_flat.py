@@ -153,8 +153,19 @@ def test_get_dataloader_gives_finetuning_training_a_flat_loader():
 
 
 def test_dual_loader_still_raises():
-    with pytest.raises(NotImplementedError, match="dataloader_num"):
-        get_dataloader(loader_config(dataloader_num=2), "train", ModelType.FINETUNING)
+    """``dataloader_num: 2`` pairs a flat loader with an episodic method's
+    (``test_torch_port_dual.py``); a FINETUNING method gets two flat
+    loaders, seeded ``seed`` and ``seed + 1``, as in the JAX package, whose
+    batches the trainer takes in turn."""
+    cfg = loader_config(dataloader_num=2, batch_size=16)
+    ours = get_dataloader(cfg, "train", ModelType.FINETUNING)
+    ref = jax_get_dataloader(cfg, "train", JaxModelType.FINETUNING)
+    assert len(ours) == len(ref) == 2 and all(isinstance(ld, FlatLoader) for ld in ours)
+    assert [ld.sampler.seed for ld in ours] == [ld.sampler.seed for ld in ref] == [3, 4]
+    for a, b in zip(ours, ref):
+        first, want = next(iter(a.epoch(0))), next(iter(b.epoch(0)))
+        np.testing.assert_array_equal(first.data, want.data)
+        np.testing.assert_array_equal(first.target, want.target)
 
 
 def test_segment_banks_take_a_flat_loader():

@@ -41,7 +41,7 @@ from audio_fewshot_tpu.optim import build_scheduler as jax_build_scheduler  # no
 from audio_fewshot_tpu_torch.config import Config  # noqa: E402
 from audio_fewshot_tpu_torch.data import get_dataloader  # noqa: E402
 from audio_fewshot_tpu_torch.data.dataset import SpectrogramDataset  # noqa: E402
-from audio_fewshot_tpu_torch.data.loader import EpisodicLoader  # noqa: E402
+from audio_fewshot_tpu_torch.data.loader import EpisodicLoader, FlatLoader  # noqa: E402
 from audio_fewshot_tpu_torch.episode import materialize_episode_batch  # noqa: E402
 from audio_fewshot_tpu_torch.models import build_method, train_setting  # noqa: E402
 from audio_fewshot_tpu_torch.models.backbones.layers import BatchNorm  # noqa: E402
@@ -292,8 +292,10 @@ def test_train_loader_config_surface():
     cfg = train_config(train_episode=6, episode_size=2, test_episode_size=5)
     (loader,) = get_dataloader(cfg, "train")
     assert loader.mode == "train" and len(loader) == 3 and loader.episode_size == 2
-    with pytest.raises(NotImplementedError, match="dataloader_num"):
-        get_dataloader(train_config(dataloader_num=2), "train")
+    # dataloader_num 2: the episodic loader and a flat one over its dataset
+    episodic, flat = get_dataloader(train_config(dataloader_num=2, batch_size=4), "train")
+    assert isinstance(episodic, EpisodicLoader) and isinstance(flat, FlatLoader)
+    assert flat.dataset is episodic.dataset and flat.sampler.batch_size == 4
 
 
 # -- one train step --------------------------------------------------------------

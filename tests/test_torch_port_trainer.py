@@ -164,8 +164,8 @@ def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("over, match", [
     ({"profile_steps": 2}, "profile_steps"),
-    ({"dataloader_num": 2}, "dataloader_num"),
-], ids=["profile_steps", "dual_loader"])
+    ({"featuring": True}, "featuring"),
+], ids=["profile_steps", "featuring"])
 def test_unported_training_features_raise(tmp_path, over, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu").train_loop()
