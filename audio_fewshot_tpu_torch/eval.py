@@ -166,10 +166,37 @@ SLICE_MODELS.update({
         "classifier": {"name": "MetabaselineKendallPretrain", "kwargs": {"num_class": 25}},
         "backbone": _RESNET12, "tag": "kendall_pretrain_no_shipped_config"},
 })
+# the CNN backbones no shipped config names, each swapped into a shipped
+# head's config at its JAX defaults ("<head>:<backbone>", NOT shipped
+# traffic); WRN-28-10 and resnet12MTLofficial at fewer episodes a step (their
+# first stages' bf16 activations at 16 episodes, 4496 segments, would be
+# 28.9 GB and 14.5 GB each); IfslPretrain (no shipped config) on
+# config/backbones/Conv64F.yaml's 1600 flat features, the first stage of the
+# IFSL cycle that ends in DMatchingNet's config/ifsl/ifsl_5shot_iid_seed42
+for key, backbone, extra in (
+        ("DeepBDC:resnet18Bdc", {"name": "resnet18Bdc", "kwargs": {
+            "num_channels": 1, "reduce_dim": 64}}, {}),
+        ("MCL:resnet12_mcl", {"name": "resnet12_mcl", "kwargs": {"num_channels": 1}}, {}),
+        ("R2D2:resnet12_r2d2", {"name": "resnet12_r2d2", "kwargs": {"num_channels": 1}}, {}),
+        ("MTL:resnet12MTLofficial", {"name": "resnet12MTLofficial", "kwargs": {
+            "num_channels": 1}}, {"test_episode_size": 8}),
+        ("S2M2:resnet18", {"name": "resnet18", "kwargs": {"num_channels": 1}}, {}),
+        ("ProtoNet:WRN", {"name": "WRN", "kwargs": {"num_channels": 1}},
+         {"test_episode_size": 4})):
+    head = key.partition(":")[0]
+    SLICE_MODELS[key] = {**copy.deepcopy(SLICE_MODELS[head]), "backbone": backbone, **extra,
+                         "tag": f"{SLICE_MODELS[head]['tag']}_{backbone['name']}_not_shipped"}
+SLICE_MODELS["IfslPretrain"] = {
+    "classifier": {"name": "IfslPretrain", "kwargs": {"num_class": 25}},
+    "backbone": _CONV64F, "save_part": ["emb_func", "classifier"],
+    "tag": "ifsl_pretrain_no_shipped_config"}
+SLICE_MODELS["DMatchingNet:seed42"] = {**copy.deepcopy(SLICE_MODELS["DMatchingNet"]),
+                                       "seed": 42, "tag": "ifsl_5shot_iid_seed42"}
 
 
 def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "bf16",
-                 classifier: str = "DeepBDC", test_episode_size: int = 16) -> Dict[str, Any]:
+                 classifier: str = "DeepBDC",
+                 test_episode_size: Optional[int] = None) -> Dict[str, Any]:
     """A full-width eval cell that ``chip_smoke.py`` and ``profile_eval``
     run on the card.
 
@@ -187,16 +214,23 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     resnet12's map (``"RENet:dual"``: with ``dataloader_num: 2`` and
     ``batch_size`` 12, not shipped): its shipped ``*_5shot_iid_seed0.yaml``;
     FEAT_Pretrain, MTLPretrain and MetabaselineKendallPretrain (no shipped
-    config) on resnet12 at their defaults.  Each with its headers, as
-    a dict (no YAML needed), cut
+    config) on resnet12 at their defaults; ``"<head>:<backbone>"``: a
+    shipped head's config on a backbone no shipped config names (DeepBDC on
+    resnet18Bdc, MCL on resnet12_mcl, R2D2 on resnet12_r2d2, MTL on
+    resnet12MTLofficial, S2M2 on resnet18, ProtoNet on WRN), IfslPretrain on
+    Conv64F and ``"DMatchingNet:seed42"`` (``ifsl_5shot_iid_seed42``).  Each
+    with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
-    ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (16
-    by default), and a ``synthetic`` root of ``[1, 128, 157]`` segments,
-    since no dataset ships with the repository."""
+    ``max_segments_per_clip`` 6, ``test_episode_size`` episodes per step (by
+    default the entry's own, else 16), and a ``synthetic`` root of ``[1,
+    128, 157]`` segments, since no dataset ships with the repository."""
+    model = copy.deepcopy(SLICE_MODELS[classifier])
+    if test_episode_size is None:
+        test_episode_size = model.pop("test_episode_size", 16)
     return Config(None, {
-        **copy.deepcopy(SLICE_MODELS[classifier]), "modality": "audio",
+        "seed": 0, **model, "modality": "audio",
         "way_num": 5, "shot_num": 5, "query_num": 10,
-        "seed": 0, "ood": False,
+        "ood": False,
         "data_root": "synthetic",
         "spec_shape": [1, 128, 157],
         "max_segments_per_clip": 6,

@@ -63,8 +63,8 @@ def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
     if not hasattr(emb_func, "map_shape"):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
-            "states no output map shape yet (the port has it for Conv64F, resnet12 and the "
-            "ViTs)")
+            "states no output map shape (the port has it for Conv64F, the resnet12 family but "
+            "resnet12Bdc, resnet18, WRN and the ViTs)")
     return tuple(emb_func.map_shape(segment_shape(config)))
 
 
@@ -78,7 +78,8 @@ def _feature_dim(config: Dict[str, Any], emb_func: torch.nn.Module) -> int:
     if not hasattr(emb_func, "feature_dim"):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
-            "states no flat feature width yet (the port has it for Conv64F and resnet12)")
+            "states no flat feature width (the port has it for Conv64F, the resnet12 family, "
+            "resnet18, resnet18Bdc and WRN)")
     return int(emb_func.feature_dim(segment_shape(config)))
 
 
@@ -96,7 +97,7 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     if config.get("is_clap"):
         raise NotImplementedError(
             "is_clap: the CLAP encoder backbone (clap_encoder.py, "
-            "CLAPEmbeddingBackbone) is not ported yet (ROADMAP Queue A item 9)")
+            "CLAPEmbeddingBackbone) is not ported yet (ROADMAP Queue A, the CLAP encoder)")
 
     cls_factory = CLASSIFIERS.get(config["classifier"]["name"])
     cls_kwargs = dict(config["classifier"].get("kwargs") or {})
@@ -104,7 +105,10 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     if getattr(cls_factory, "needs_map_shape", False):
         cls_kwargs["map_shape"] = _map_shape(config, cls_kwargs["emb_func"])
     if getattr(cls_factory, "needs_feat_dim", False):
-        cls_kwargs.setdefault("feat_dim", _feature_dim(config, cls_kwargs["emb_func"]))
+        # the backbone's width, whatever the config says: the JAX package
+        # sizes these heads from the traced features and reads no config
+        # width (ifsl_dmatching_smoke.yaml's feat_dim: 64)
+        cls_kwargs["feat_dim"] = _feature_dim(config, cls_kwargs["emb_func"])
     # episode-geometry kwargs, as the reference passes to every classifier
     for key, val in (
         ("way_num", config.get("way_num")),

@@ -1,6 +1,8 @@
-"""ResNet-12: the plain resnet12 / resnet12woLSC and resnet12Bdc with its
-BDC pooling head (counterpart of ``BasicBlock3`` / ``ResNet12`` /
-``BdcHead`` / ``ResNet12BDC`` in
+"""ResNet-12: the plain resnet12 / resnet12woLSC, resnet12Bdc with its BDC
+pooling head, the dense-map resnet12_mcl / resnet12_r2d2 and the
+meta-transfer resnet12MTLofficial (counterpart of ``BasicBlock3`` /
+``ResNet12`` / ``BdcHead`` / ``ResNet12BDC`` / ``ResNet12Dense`` /
+``MtlConv`` / ``MtlBasicBlock`` / ``ResNetMTLOfficial`` in
 ``audio_fewshot_tpu/models/backbones/resnet.py``).
 
 State-dict keys are the reference torch names (``layer1.0.conv1.weight``,
@@ -29,7 +31,7 @@ from torch import nn
 
 from ...ops.bdc_cuda import bdc_pool_triu
 from ...registry import BACKBONES
-from ..init import lecun_normal_
+from ..init import he_normal_, lecun_normal_
 from .layers import BatchNorm, Conv2d, DropBlock, Dropout, backbone_factory
 
 
@@ -184,6 +186,146 @@ resnet12 = BACKBONES.register("resnet12")(backbone_factory(ResNet12, "keep_prob"
 # resnet12woLSC: planes 64/128/256/512, no residual in stage 4
 resnet12wolsc = BACKBONES.register("resnet12woLSC")(backbone_factory(
     functools.partial(ResNet12, planes=(64, 128, 256, 512), last_residual=False), "keep_prob"))
+
+
+class ResNet12Dense(nn.Module):
+    """The dense-map resnet12 of MCL and R2D2 (resnet12_mcl, resnet12_r2d2):
+    resnet12's four ``BasicBlock3`` stages, every one pooled, DropBlock of
+    ``dropblock_size`` 3 on stages 3 and 4 (``drop_rate`` 0 by default);
+    the ``[N, c, h, w]`` map in float32 ([640, 8, 9] at ``[1, 128, 157]``)
+    or, with ``global_avg_pool``, its mean ``[N, c]``.  Weights drawn as
+    flax's defaults."""
+
+    def __init__(self, planes: Sequence[int] = (64, 160, 320, 640), drop_rate: float = 0.0,
+                 dropblock_size: int = 3, num_channels: int = 1,
+                 use_running_statistics: bool = True, global_avg_pool: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.global_avg_pool = global_avg_pool
+        self.layer1, self.layer2, self.layer3, self.layer4 = _stages(
+            tuple(planes), num_channels, maxpool_last2=True, last_pool=True, last_residual=True,
+            drop_rate=drop_rate, block_size=dropblock_size,
+            use_running_statistics=use_running_statistics)
+        for mod in self.modules():
+            if isinstance(mod, nn.Conv2d):
+                lecun_normal_(mod.weight)
+
+    def map_shape(self, spec_shape: Sequence[int]) -> Tuple[int, int, int]:
+        """``(c, h, w)`` of the output for a ``spec_shape`` segment: four 2 × 2
+        floor pools (1 × 1 after the global pool)."""
+        h, w = spec_shape[-2:]
+        for _ in range(4):
+            h, w = h // 2, w // 2
+        c = self.layer4[0].conv3.out_channels
+        return (c, 1, 1) if self.global_avg_pool else (c, h, w)
+
+    def feature_dim(self, spec_shape: Sequence[int]) -> int:
+        c, h, w = self.map_shape(spec_shape)
+        return c * h * w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x)))).float()
+        return x.mean(dim=(2, 3)) if self.global_avg_pool else x
+
+
+resnet12_mcl = BACKBONES.register("resnet12_mcl")(backbone_factory(ResNet12Dense))
+resnet12_r2d2 = BACKBONES.register("resnet12_r2d2")(
+    backbone_factory(functools.partial(ResNet12Dense, global_avg_pool=True)))
+
+
+class MtlConv(nn.Module):
+    """The meta-transfer convolution (the reference's ``Conv2dMtl``): the
+    kernel ``weight`` [O, I, kh, kw] enters the product detached, scaled per
+    (out, in) pair by ``mtl_weight`` [O, I, 1, 1], plus a per-output shift.
+    The shift is ``mtl_bias``, trained, plus with ``bias`` the reference's
+    frozen ``bias`` buffer.  The reference's bias-free convolutions have no
+    ``mtl_bias``; the JAX package's ``MtlConv`` trains a shift on every one,
+    and so does this.  The kernel is drawn as flax's ``he_normal``, the
+    scale 1 and the shift 0."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, bias: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size))
+        he_normal_(self.weight)
+        self.mtl_weight = nn.Parameter(torch.ones(out_channels, in_channels, 1, 1))
+        self.register_buffer("bias", torch.zeros(out_channels) if bias else None)
+        self.mtl_bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = (self.weight.detach() * self.mtl_weight).to(x.dtype)
+        shift = self.mtl_bias if self.bias is None else self.bias + self.mtl_bias
+        return F.conv2d(x, kernel, shift.to(x.dtype), self.stride, self.padding)
+
+
+class MtlBasicBlock(nn.Module):
+    """Two ``MtlConv`` 3×3 (stride on the first, padded (1, 1)) with BN,
+    ReLU between, plus the input or a 1×1 ``MtlConv`` + BN of it when the
+    stride or the width changes, then ReLU."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = MtlConv(inplanes, planes, 3, stride)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = MtlConv(planes, planes, 3)
+        self.bn2 = BatchNorm(planes)
+        self.downsample = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(MtlConv(inplanes, planes, 1, stride, padding=0),
+                                            BatchNorm(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+        return F.relu(out + (x if self.downsample is None else self.downsample(x)))
+
+
+class ResNetMTLOfficial(nn.Module):
+    """resnet12MTLofficial over ``[N, C, F, T]`` spectrograms: an ``MtlConv``
+    stem (with the reference's bias) to 80 channels, BN, ReLU; three stages
+    (``layer1`` … ``layer3``) of four ``MtlBasicBlock`` at 160/320/640, each
+    stage's first at stride 2; a 10 × 10 stride-1 VALID average pool,
+    clipped to the map, in float32; flattened in NCHW order (the JAX package
+    flattens this one as the reference does): [640, 7, 11], 49 280 features
+    at ``[1, 128, 157]``.  Its BNs always keep running statistics."""
+
+    def __init__(self, num_channels: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = MtlConv(num_channels, 80, 3, bias=True)
+        self.bn1 = BatchNorm(80)
+        inplanes = 80
+        for stage, planes in enumerate((160, 320, 640)):
+            blocks = []
+            for b in range(4):
+                blocks.append(MtlBasicBlock(inplanes, planes, 2 if b == 0 else 1))
+                inplanes = planes
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+
+    @staticmethod
+    def map_shape(spec_shape: Sequence[int]) -> Tuple[int, int, int]:
+        """``(c, h, w)`` after the average pool for a ``spec_shape`` segment."""
+        h, w = spec_shape[-2:]
+        for _ in range(3):
+            h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        return (640, h - min(10, h) + 1, w - min(10, w) + 1)
+
+    def feature_dim(self, spec_shape: Sequence[int]) -> int:
+        c, h, w = self.map_shape(spec_shape)
+        return c * h * w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x.to(self.dtype))))
+        x = self.layer3(self.layer2(self.layer1(x))).float()
+        x = F.avg_pool2d(x, (min(10, x.shape[2]), min(10, x.shape[3])), stride=1)
+        return x.reshape(x.shape[0], -1)
+
+
+resnet12mtl = BACKBONES.register("resnet12MTLofficial")(
+    backbone_factory(ResNetMTLOfficial, "use_MTL", "MTL"))
 
 
 class BdcHead(nn.Module):

@@ -1,6 +1,7 @@
-"""DMatchingNet, interventional few-shot learning over a matching network
-(counterpart of ``DMatchingNet`` in ``audio_fewshot_tpu/models/heads/ifsl.py``;
-its ``IfslPretrain`` and the featuring pass are not ported yet).
+"""DMatchingNet, interventional few-shot learning over a matching network,
+and IfslPretrain, the pretrainer of its classifier and class-mean features
+(counterpart of ``DMatchingNet`` and ``IfslPretrain`` in
+``audio_fewshot_tpu/models/heads/ifsl.py``).
 
 The flat features are cut into ``n_splits`` chunks; each gets a
 "d-feature" from a pretrained classifier (``d_feature: pd``, its softmax
@@ -22,8 +23,18 @@ a g]``, then ``h = h + query``.  Scores are ``relu(cos(f, g))``:
 The per-split attention is averaged, summed per class and logged (+ 1e-6):
 log-probabilities, the loss their masked mean NLL.  ``_l2n`` is ``x / (‖x‖
 + 1e-5)``.  Without ``feature_path`` the class-mean features are zeros;
-``cls_path`` (IfslPretrain's classifier) raises until IfslPretrain is
-ported, so the pretrained classifier starts at random.
+``cls_path`` names IfslPretrain's saved ``classifier`` part, which loads
+into ``utils.linear`` at construction (without it the pretrained classifier
+starts at random).
+
+IfslPretrain trains the backbone and a linear ``classifier`` with global
+cross-entropy on flat batches, validates with euclidean prototypes, and with
+``ifsl_pretrain_param.featuring`` runs ``Trainer.run_featuring`` instead of
+training: one eval-mode pass over the train split's flat epoch whose
+per-class mean features (``class_sums``; ``x / (‖x‖ + 1e-5)`` first with
+``norm``) go to ``feature_path`` as float32 ``[num_class, D]``, the
+artifact DMatchingNet's ``feature_path`` reads.  Classes the pass does not
+see keep zero rows.
 
 Batch statistics belong to each episode's role (``requires_batch_stat_bn``):
 the episodes run one after another, support and query through separate
@@ -43,6 +54,7 @@ is 0 and frozen).
 from __future__ import annotations
 
 import inspect
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,8 +65,10 @@ from torch.nn.modules.batchnorm import _BatchNorm
 
 from ...episode import EpisodeBatch, segment_targets
 from ...registry import CLASSIFIERS
+from ...utils.checkpoint import load_part, read_part
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType
 from ..init import dense, lecun_normal_
+from .pretrains import GlobalPretrain
 
 PREPROCESS_MODES = ("none", "l2n", "cl2n")
 
@@ -167,10 +181,6 @@ class DMatchingNet(MethodBase):
             if mode not in PREPROCESS_MODES:
                 raise ValueError(f"unsupported preprocess mode {mode!r}; choose from "
                                  f"{PREPROCESS_MODES}")
-        if p.get("cls_path"):
-            raise NotImplementedError(
-                "ifsl_param.cls_path: IfslPretrain's classifier is not ported yet (ROADMAP "
-                "Queue A item 8); without it the pretrained classifier starts at random")
         if feat_dim % self.n_splits:
             raise ValueError(f"feature width {feat_dim} does not split into {self.n_splits}")
         self.split_dim = feat_dim // self.n_splits
@@ -185,6 +195,8 @@ class DMatchingNet(MethodBase):
         if p.get("normalize_d", False):
             features = features / (np.linalg.norm(features, axis=1, keepdims=True) + 1e-5)
         self.utils = IFSLUtils(feat_dim, self.class_num, features)
+        if p.get("cls_path"):
+            self.utils.linear.load_state_dict(read_part(p["cls_path"], "classifier"))
         if self.single:
             fused = self.split_dim + (self.class_num if self.d_feature == "pd" else
                                       self.split_dim if self.fusion == "concat" else 0)
@@ -317,3 +329,49 @@ class DMatchingNet(MethodBase):
         mask = batch.query_mask.to(nll.dtype)
         loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
         return loss, LossOutput(seg_logits, self.train_metrics(seg_logits, batch))
+
+
+@CLASSIFIERS.register("IfslPretrain")
+class IfslPretrain(GlobalPretrain):
+    """Global CE through the linear ``classifier`` on flat batches,
+    euclidean-prototype validation.  ``ifsl_pretrain_param``: ``norm``,
+    ``featuring`` (``Trainer.run_featuring`` in place of training) and
+    ``feature_path``.  ``cls_classifier_path`` loads a saved ``classifier``
+    part at construction; ``emb_func_path`` / ``emd_func_path`` are ignored
+    with a warning (the backbone loads through ``pretrain_path``)."""
+
+    val_metric = "euclidean"
+
+    def __init__(self, emb_func, ifsl_pretrain_param: Optional[Dict] = None,
+                 emb_func_path: Optional[str] = None, emd_func_path: Optional[str] = None,
+                 cls_classifier_path: Optional[str] = None, **kwargs):
+        super().__init__(emb_func, **kwargs)
+        p = dict(ifsl_pretrain_param or {})
+        self.norm = bool(p.get("norm", False))
+        self.featuring = bool(p.get("featuring", False))
+        self.feature_path = p.get("feature_path")
+        if emb_func_path or emd_func_path:
+            warnings.warn("IfslPretrain ignores emb_func_path/emd_func_path — load the backbone "
+                          "part through the top-level `pretrain_path` config key instead",
+                          stacklevel=2)
+        if cls_classifier_path:
+            load_part(cls_classifier_path, self, part="classifier")
+
+    def class_sums(self, data: torch.Tensor, targets: torch.Tensor, normalize: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-class sums ``[num_class, D]`` of the flat features of ``data``
+        (L2-normalised first with ``normalize``) and the counts
+        ``[num_class]``, with the backbone as it is (eval mode for the
+        featuring pass)."""
+        feats = self.flat_features(data)
+        if normalize:
+            feats = _l2n(feats)
+        onehot = F.one_hot(targets.long(), self.num_class).to(feats.dtype)
+        return onehot.T @ feats, onehot.sum(dim=0)
+
+    def compute_class_features(self, data: torch.Tensor, targets: torch.Tensor,
+                               normalize: bool = True) -> torch.Tensor:
+        """Per-class mean features over a labelled set; unseen classes keep
+        zero rows."""
+        sums, counts = self.class_sums(data, targets, normalize)
+        return sums / counts.clamp(min=1.0)[:, None]

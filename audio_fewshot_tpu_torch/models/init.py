@@ -39,6 +39,14 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator = None) -> None:
     _truncated(w, 1.0 / fan_in, generator)
 
 
+@torch.no_grad()
+def he_normal_(w: torch.Tensor, generator: torch.Generator = None) -> None:
+    """flax's ``he_normal`` in place: the truncated normal of variance
+    2 / fan_in (``init_type: kaiming``; ``MtlConv``'s kernel)."""
+    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(w)
+    _truncated(w, 2.0 / fan_in, generator)
+
+
 def dense(in_dim: int, out_dim: int, bias: bool = True) -> nn.Linear:
     """An ``nn.Linear`` drawn as flax's ``Dense``: lecun_normal kernel, zero
     bias."""
@@ -63,7 +71,7 @@ def init_weights(model: nn.Module, init_type: str, generator: torch.Generator) -
         if init_type == "normal":
             nn.init.normal_(w, 0.0, 0.02, generator=generator)
         elif init_type == "kaiming":
-            _truncated(w, 2.0 / fan_in, generator)
+            he_normal_(w, generator)
         elif init_type == "xavier":
             _truncated(w, 2.0 / (fan_in + fan_out), generator)
         else:

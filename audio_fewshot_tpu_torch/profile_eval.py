@@ -4,8 +4,9 @@
 
 Builds an eval cell of ``eval.slice_config`` (``--classifier DeepBDC``, the
 default: DeepBDC + resnet12Bdc; ``ProtoNet``: ProtoNet + Conv64F; a Conv64F
-metric head such as ``MCL`` or ``DN4``; each at [1, 128, 157] segments, 16
-episodes per step, bf16) through ``Test``, warms
+metric head such as ``MCL`` or ``DN4``; ``ProtoNet:WRN`` and the other cells
+of a backbone swapped in; each at [1, 128, 157] segments, 16 episodes per
+step or the cell's own count, bf16) through ``Test``, warms
 up, times ``--steps`` eval steps without the profiler, then runs them again
 under ``torch.profiler`` and prints the device time by kernel category and
 the top kernels, the device-busy share of the window, and the step times
@@ -83,7 +84,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device is available", file=sys.stderr)
         return 1
-    cfg = slice_config(test_episode=16 * args.steps, test_epoch=1, classifier=args.classifier)
+    size = slice_config(classifier=args.classifier)["test_episode_size"]
+    cfg = slice_config(test_episode=size * args.steps, test_epoch=1, classifier=args.classifier)
     test = Test(0, cfg, None, device="cuda")
     batches = list(test.test_loader[0].epoch(0))
     torch.set_grad_enabled(False)  # as ``Test.test_loop`` runs its steps

@@ -13,10 +13,12 @@ majority-vote clip accuracy and a 95 % CI), then the checkpoints: best (by
 val accuracy; the best test accuracy is the one AT that epoch), every
 ``save_interval`` epochs, and last (with the optimizer and scheduler
 state, which ``resume`` reads back).  It runs on ``cuda`` unless ``device``
-says otherwise, and raises when no card is there.
+says otherwise, and raises when no card is there.  IfslPretrain with
+``ifsl_pretrain_param.featuring`` runs ``run_featuring`` in place of the
+epochs.
 
 Not ported yet (``NotImplementedError`` naming the ROADMAP item):
-``profile_steps`` and IFSL's featuring pass.
+``profile_steps``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .config import Config, save_config
@@ -64,9 +67,9 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
     → 32 by default, and a ``synthetic`` root, since no dataset ships with
     the repository."""
     return Config(None, {
-        **copy.deepcopy(SLICE_MODELS[classifier]),
+        "seed": 0, **copy.deepcopy(SLICE_MODELS[classifier]),
         "modality": "audio", "way_num": 5, "shot_num": 5, "query_num": 10,
-        "seed": 0, "ood": False, "data_root": "synthetic", "spec_shape": [1, 128, 157],
+        "ood": False, "data_root": "synthetic", "spec_shape": [1, 128, 157],
         "mean_std_file": "./Auxiliary/Clean_Mean_Std.npy",
         "class_per_split": "./Auxiliary/KOS_paper_splits.npy",
         "augment": True, "epoch": epoch, "train_episode": train_episode,
@@ -81,10 +84,9 @@ class Trainer:
     def __init__(self, rank: int, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        for key, item in (("profile_steps", "a torch.profiler window (Queue A item 10)"),
-                          ("featuring", "IFSL's featuring pass (Queue A item 8)")):
-            if config.get(key) or (config.get("ifsl_pretrain_param") or {}).get(key):
-                raise NotImplementedError(f"{key}: {item} is not ported yet (ROADMAP)")
+        if config.get("profile_steps"):
+            raise NotImplementedError("profile_steps: a torch.profiler window is not ported yet "
+                                      "(ROADMAP Queue A, remaining pieces)")
         if config.get("precision", "bf16") == "fp32":
             # float32 means float32: cuDNN convolutions default to TF32
             torch.backends.cudnn.allow_tf32 = False
@@ -254,8 +256,50 @@ class Trainer:
 
     # -- loops --------------------------------------------------------------
 
+    @torch.no_grad()
+    def run_featuring(self) -> Tuple[float, float]:
+        """IFSL's featuring pass (IfslPretrain with
+        ``ifsl_pretrain_param.featuring``): one eval-mode pass over the flat
+        train loader's epoch 0, the per-class sums and counts of the
+        backbone's flat features (``IfslPretrain.class_sums``, with its
+        ``norm``), their means written to ``feature_path`` with ``np.save`` as
+        float32 ``[num_class, D]`` (unseen classes: zero rows, warned), and
+        a LAST checkpoint of the unchanged weights with its ``save_part``
+        files.  The parameters never move, so no epoch loop."""
+        feature_path = getattr(self.method, "feature_path", None)
+        if not feature_path:
+            raise ValueError("featuring: true requires ifsl_pretrain_param.feature_path")
+        self.method.eval()
+        num_class = self.method.num_class
+        sums = torch.zeros((num_class, self.method.feat_dim), device=self.device)
+        counts = torch.zeros((num_class,), device=self.device)
+        t0, steps = time.time(), 0
+        for host_batch in self.train_loader[0].epoch(0):
+            batch = self._device_batch(host_batch, self.train_bank)
+            step_sums, step_counts = self.method.class_sums(batch.data, batch.target,
+                                                            self.method.norm)
+            sums += step_sums
+            counts += step_counts
+            steps += 1
+        means = (sums / counts.clamp(min=1.0)[:, None]).cpu().numpy().astype(np.float32)
+        os.makedirs(os.path.dirname(os.path.abspath(feature_path)), exist_ok=True)
+        np.save(feature_path, means)
+        covered = int((counts > 0).sum())
+        self.logger.info("featuring: %d steps, %d/%d classes covered -> %s (%.1f s)", steps,
+                         covered, num_class, feature_path, time.time() - t0)
+        if covered < num_class:
+            self.logger.warning("featuring: %d classes unseen in the train split keep all-zero "
+                                "feature rows", num_class - covered)
+        save_model(self.ckpt_dir, self.method, 0, SaveType.LAST,
+                   train_state={"best_val_acc": -1.0, "best_test_acc": -1.0},
+                   save_part=self.config.get("save_part") or [])
+        self.writer.close()
+        return self.best_val_acc, self.best_test_acc
+
     def train_loop(self, rank: int = 0) -> Tuple[float, float]:
         cfg = self.config
+        if getattr(self.method, "featuring", False):
+            return self.run_featuring()
         epochs = int(cfg.get("epoch", 1))
         t_start = time.time()
         for epoch in range(self.start_epoch, epochs):

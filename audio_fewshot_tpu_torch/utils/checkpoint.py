@@ -89,19 +89,37 @@ def load_model(path: str, method: nn.Module) -> None:
     method.load_state_dict(_load(path))
 
 
+_RUNNING = ("running_mean", "running_var", "num_batches_tracked")
+
+
 def load_part(path: str, method: nn.Module, part: str = "emb_func") -> None:
     """Load a ``{part}_….pth`` file into ``method``'s ``part`` submodule;
-    every entry of that submodule must be in the file."""
+    every entry of that submodule must be in the file.  Running statistics
+    the submodule does not hold are left out: a method whose BNs run on
+    batch statistics (the MAML family, DMatchingNet) loads a backbone saved
+    with them, as the JAX package loads them into statistics it never
+    reads."""
     state = _load(path)
     own = {k for k in method.state_dict() if k.startswith(part + ".")}
     if not own:
         raise KeyError(f"part {part!r} not present in the method")
+    state = {k: v for k, v in state.items() if k in own or not k.endswith(_RUNNING)}
     if set(state) != own:
         raise KeyError(
             f"{path} does not hold the {part!r} part: missing "
             f"{sorted(own - set(state))[:5]}, unexpected {sorted(set(state) - own)[:5]}"
         )
     method.load_state_dict(state, strict=False)
+
+
+def read_part(path: str, part: str) -> Dict[str, torch.Tensor]:
+    """A ``{part}_….pth`` file's entries with the ``{part}.`` prefix taken
+    off, for a module that holds the part under another name (DMatchingNet's
+    ``cls_path``: IfslPretrain's ``classifier``)."""
+    state = _load(path)
+    if not state or not all(k.startswith(part + ".") for k in state):
+        raise KeyError(f"{path} does not hold the {part!r} part: keys {sorted(state)[:5]}")
+    return {k[len(part) + 1:]: v for k, v in state.items()}
 
 
 def load_last(path: str) -> Dict[str, Any]:

@@ -3,8 +3,11 @@
 The port's own copy of ``_invert_convnf`` / ``_invert_resnet12`` /
 ``_invert_resnet12bdc`` / ``_invert_vit_class_aware`` in
 ``audio_fewshot_tpu/utils/torch_convert.py``, and
-the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` (which have
-no inverter there): flax conv kernels HWIO → torch OIHW, Dense kernels
+the inverses of its ``_convert_r2d2emb`` / ``_convert_convmcl`` /
+``_convert_resnet18`` / ``_convert_resnet18bdc`` / ``_convert_wrn`` /
+``_convert_resnet12_dense`` / ``_convert_resnet12mtl`` (which have no
+inverter there; resnet12MTLofficial's ``MtlConv`` shift goes to
+``mtl_bias``, the stem's reference ``bias`` at 0): flax conv kernels HWIO → torch OIHW, Dense kernels
 [in, out] → Linear [out, in]; BatchNorm ``scale``/``bias`` (params) and
 ``mean``/``var`` (batch_stats) → ``weight``/``bias``/``running_mean``/
 ``running_var``.  resnet12 / resnet12woLSC / resnet12Bdc also carry their
@@ -29,6 +32,7 @@ dicts of numpy arrays, so this module needs no JAX.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -70,14 +74,107 @@ def _resnet12(params, stats, state) -> None:
                                                              dtype=np.int64)
 
 
-def _resnet12bdc(params, stats, state) -> None:
-    _resnet12(params, stats, state)
+def _bdc_head(params, stats, state) -> None:
+    """``BdcHead``: ``bdc_pool.reduce_conv`` / ``reduce_bn`` →
+    ``bdc_pool.conv_dr_block.{0,1}``, ``log_temperature`` → ``temperature``."""
     head_p, head_s = params["bdc_pool"], stats.get("bdc_pool", {})
     if "reduce_conv" in head_p:
         state["bdc_pool.conv_dr_block.0.weight"] = _conv(head_p["reduce_conv"]["kernel"])
         _bn(state, "bdc_pool.conv_dr_block.1",
             head_p["reduce_bn"]["BatchNorm_0"], head_s["reduce_bn"]["BatchNorm_0"])
     state["bdc_pool.temperature"] = np.asarray(head_p["log_temperature"])
+
+
+def _resnet12bdc(params, stats, state) -> None:
+    _resnet12(params, stats, state)
+    _bdc_head(params, stats, state)
+
+
+def _two_conv_block(params, stats, state, src: str, dst: str, names) -> None:
+    """A ``BasicBlock2`` (flax ``conv{1,2}`` / ``bn{1,2}`` /
+    ``downsample_conv`` / ``downsample_bn``) under ``dst`` with the
+    reference's ``names`` for those six."""
+    p, s = params[src], stats[src]
+    for j, (conv, bn) in enumerate((names[:2], names[2:4]), start=1):
+        state[f"{dst}.{conv}.weight"] = _conv(p[f"conv{j}"]["kernel"])
+        _bn(state, f"{dst}.{bn}", p[f"bn{j}"]["BatchNorm_0"], s[f"bn{j}"]["BatchNorm_0"])
+    if "downsample_conv" in p:
+        state[f"{dst}.{names[4]}.weight"] = _conv(p["downsample_conv"]["kernel"])
+        _bn(state, f"{dst}.{names[5]}", p["downsample_bn"]["BatchNorm_0"],
+            s["downsample_bn"]["BatchNorm_0"])
+
+
+def _blocks(params):
+    """The flax names ``{prefix}{i}_{b}`` of a backbone's blocks, with
+    ``(i, b)``, in order."""
+    found = (re.fullmatch(r"(?:layer|block)(\d+)_(\d+)", name) for name in params)
+    return sorted((int(m[1]), int(m[2]), m[0]) for m in found if m)
+
+
+def _resnet18(params, stats, state) -> None:
+    """resnet18: ``conv1`` / ``bn1`` and ``layer{i}_{b}`` →
+    ``layer{i}.{b}.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}``."""
+    state["conv1.weight"] = _conv(params["conv1"]["kernel"])
+    _bn(state, "bn1", params["bn1"]["BatchNorm_0"], stats["bn1"]["BatchNorm_0"])
+    for i, b, name in _blocks(params):
+        _two_conv_block(params, stats, state, name, f"layer{i}.{b}",
+                        ("conv1", "bn1", "conv2", "bn2", "downsample.0", "downsample.1"))
+
+
+def _resnet18bdc(params, stats, state) -> None:
+    """resnet18Bdc: ``conv1`` / ``bn1`` → ``trunk.0`` / ``trunk.1``;
+    ``layer{s}_{b}`` → ``trunk.{4 + 2(s − 1) + b}.{C1,BN1,C2,BN2,shortcut,
+    BNshortcut}``; the BDC head."""
+    state["trunk.0.weight"] = _conv(params["conv1"]["kernel"])
+    _bn(state, "trunk.1", params["bn1"]["BatchNorm_0"], stats["bn1"]["BatchNorm_0"])
+    for s, b, name in _blocks(params):
+        _two_conv_block(params, stats, state, name, f"trunk.{4 + 2 * (s - 1) + b}",
+                        ("C1", "BN1", "C2", "BN2", "shortcut", "BNshortcut"))
+    _bdc_head(params, stats, state)
+
+
+def _wrn(params, stats, state) -> None:
+    """WRN: ``conv1``, the final ``bn1``, ``block{g}_{b}``'s ``bn1`` /
+    ``conv1`` / ``bn2`` / ``conv2`` / ``shortcut`` →
+    ``block{g}.layer.{b}.{bn1,conv1,bn2,conv2,convShortcut}``."""
+    state["conv1.weight"] = _conv(params["conv1"]["kernel"])
+    _bn(state, "bn1", params["bn1"]["BatchNorm_0"], stats["bn1"]["BatchNorm_0"])
+    for g, b, name in _blocks(params):
+        p, s, pre = params[name], stats[name], f"block{g}.layer.{b}"
+        for j in (1, 2):
+            state[f"{pre}.conv{j}.weight"] = _conv(p[f"conv{j}"]["kernel"])
+            _bn(state, f"{pre}.bn{j}", p[f"bn{j}"]["BatchNorm_0"], s[f"bn{j}"]["BatchNorm_0"])
+        if "shortcut" in p:
+            state[f"{pre}.convShortcut.weight"] = _conv(p["shortcut"]["kernel"])
+
+
+def _mtl_conv(state, key: str, p: Dict, bias: bool = False) -> None:
+    """``MtlConv``: ``kernel`` → ``weight``, ``mtl_scale`` [1, 1, I, O] →
+    ``mtl_weight`` [O, I, 1, 1], the shift → ``mtl_bias``; with the
+    reference's ``bias`` (the stem), that at 0, so that the reference's sum
+    ``bias + mtl_bias`` is the shift."""
+    state[key + ".weight"] = _conv(p["kernel"])
+    state[key + ".mtl_weight"] = _conv(p["mtl_scale"])
+    state[key + ".mtl_bias"] = np.asarray(p["mtl_bias"])
+    if bias:
+        state[key + ".bias"] = np.zeros_like(state[key + ".mtl_bias"])
+
+
+def _resnet12mtl(params, stats, state) -> None:
+    """resnet12MTLofficial: the stem ``conv1`` (with ``bias``) / ``bn1`` and
+    ``layer{i}_{b}`` → ``layer{i}.{b}.{conv1,bn1,conv2,bn2,downsample.0,
+    downsample.1}``."""
+    _mtl_conv(state, "conv1", params["conv1"], bias=True)
+    _bn(state, "bn1", params["bn1"]["BatchNorm_0"], stats["bn1"]["BatchNorm_0"])
+    for i, b, name in _blocks(params):
+        p, s, pre = params[name], stats[name], f"layer{i}.{b}"
+        for j in (1, 2):
+            _mtl_conv(state, f"{pre}.conv{j}", p[f"conv{j}"])
+            _bn(state, f"{pre}.bn{j}", p[f"bn{j}"]["BatchNorm_0"], s[f"bn{j}"]["BatchNorm_0"])
+        if "downsample_conv" in p:
+            _mtl_conv(state, f"{pre}.downsample.0", p["downsample_conv"])
+            _bn(state, f"{pre}.downsample.1", p["downsample_bn"]["BatchNorm_0"],
+                s["downsample_bn"]["BatchNorm_0"])
 
 
 def _convnf(params, stats, state) -> None:
@@ -151,6 +248,12 @@ _CONVERTERS = {
     "resnet12": _resnet12,
     "resnet12woLSC": _resnet12,  # no downsample in stage 4
     "resnet12Bdc": _resnet12bdc,
+    "resnet12_mcl": _resnet12,  # the same layer{i}.0 keys; stride in the pools
+    "resnet12_r2d2": _resnet12,
+    "resnet12MTLofficial": _resnet12mtl,
+    "resnet18": _resnet18,
+    "resnet18Bdc": _resnet18bdc,
+    "WRN": _wrn,
     "vit_tiny": _vit,
     "vit_small": _vit,
     "VisionTransformer": _vit,
@@ -486,7 +589,7 @@ _HEAD_CONVERTERS = {
     **{name: _global_head for name in (
         "Baseline", "BaselinePlus", "NegNet", "RFSModel", "SKDModel", "S2M2",
         "MetabaselinePretrain", "MetabaselineKendallPretrain", "FEAT_Pretrain",
-        "DeepBDC_Pretrain")},
+        "DeepBDC_Pretrain", "IfslPretrain")},
 }
 
 

@@ -13,7 +13,9 @@ Phases (any failure ends the script with a non-zero exit code):
 3. each kernel against its plain PyTorch version on the card, in float32
    with TF32 off, at the main-path shape, at the shapes phase 11's TTA cell
    gives it (its episode batch and its augmented segments), at phase 20's
-   flat training batch (128, 64, 304) (timed too), at odd shapes
+   flat training batch (128, 64, 304) (timed too), at phase 22's resnet18Bdc
+   shapes (4496, 64, 80) (timed, and against float64) and (75, 64, 80), at
+   odd shapes
    (every padded width of the kernel on both of its load paths), and on three
    adversarial inputs (post-ReLU, near-duplicate rows, scaled by 30) where
    both are also held against a float64 evaluation (max abs error limit
@@ -29,8 +31,10 @@ Phases (any failure ends the script with a non-zero exit code):
 5. one float32 batch: segment logits on the card against the same model on
    the CPU;
 6. the backward kernel against autograd through the plain version on the
-   card, in float32 with TF32 off, at the training shape (75, 64, 304) and
-   phase 20's flat one (128, 64, 304) (both timed), at the odd shapes of
+   card, in float32 with TF32 off, at the training shape (75, 64, 304),
+   phase 20's flat one (128, 64, 304) and phase 22's resnet18Bdc one (75,
+   64, 80) (all three timed; the last against float64 too), at the odd
+   shapes of
    phase 3 (every padded width on both load paths), with
    one element, with clusters of 8, 2 and 1 blocks and with slices walked in
    chunks (relative to the max abs, limit 1e-4), twice on one input (the
@@ -50,7 +54,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-21, which run before it);
+   (printed after phases 9-22, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -71,7 +75,7 @@ Phases (any failure ends the script with a non-zero exit code):
    ConvMNet, ATLNet and MCL, each its shipped ``*_5shot_iid_seed0`` at full
    width (``eval.slice_config(classifier=...)``: Conv64F's [64, 4, 5] map,
    16 episodes a step, bf16 backbone, fp32 head) through ``Test``, cut to
-   two epochs of 256 test episodes: eval eps/s of each epoch, ms a step,
+   one epoch of 256 test episodes: eval eps/s of the epoch, ms a step,
    peak memory, BDC launches (must be 0), and one float32 episode's logits
    on the card against the CPU;
 13. their training: each through ``Trainer`` for one epoch of 20 episodes
@@ -153,6 +157,20 @@ Phases (any failure ends the script with a non-zero exit code):
    step's loss card vs CPU); MTLPretrain and MetabaselineKendallPretrain (no
    shipped config) one eval step of 16 episodes and one float32 episode
    card vs CPU.  No BDC kernel may launch in any of these cells.
+22. the CNN backbones no shipped config names, each swapped into a shipped
+   head's config at its JAX defaults (NOT shipped traffic): DeepBDC on
+   resnet18Bdc (``bdc_pool`` at M = 80), MCL on resnet12_mcl, R2D2 on
+   resnet12_r2d2, MTL on resnet12MTLofficial (8 episodes a step) and
+   ProtoNet on WRN-28-10 (4 a step): eval through ``Test`` at phase 15's
+   cut, one float32 episode card vs CPU (MTL at 5 inner steps), one
+   training epoch at phase 13's cut, the BDC launches (a backbone call
+   each, the backward one a train step, in the resnet18Bdc cell; 0 in the
+   others); S2M2 on resnet18 as phase 20's cells; and IFSL's cycle:
+   IfslPretrain (Conv64F, 25 classes) trains one flat epoch and saves
+   ``emb_func`` and ``classifier``, the featuring run writes the [25, 1600]
+   class means, and ``ifsl_5shot_iid_seed42`` (DMatchingNet) loads all
+   three (held equal to what was written) for one eval epoch and a float32
+   episode card vs CPU.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -162,6 +180,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import inspect
 import json
 import math
 import os
@@ -192,9 +211,11 @@ LOGIT_REL_LIMIT = 1e-3
 METRIC_HEADS = ("DN4", "ADM", "ADM_KL", "ConvMNet", "ATLNet", "MCL")
 # phase 13's cut of a training cell: 1 epoch of 20 episodes, 16 val and test
 HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
-# phases 12 and 14's eval cut: 2 test epochs of 256 episodes (16 steps of 16)
-# each, so that each epoch's eps/s is read over many steps and the two agree
-EVAL_CUT = {"test_episode": 256, "test_epoch": 2}
+# phases 12 and 14's eval cut: one test epoch of 256 episodes (16 steps of
+# 16), so that its eps/s is read over many steps; a second such epoch
+# repeated it within a few per cent and was cut to keep the script inside
+# its time limit
+EVAL_CUT = {"test_episode": 256, "test_epoch": 1}
 # the resnet12-family eval cut of phases 15 and 20: one epoch of 64 test
 # episodes, 4 steps of 16 (a step takes ≈ 0.6 s; phase 12's cut took 200 s
 # of phase 15)
@@ -277,6 +298,29 @@ SLICE11_FEATURES = {
 RENET_FEATURES = "resnet12's [640, 8, 9] map; SCR 5 x 5 and CCA, one episode at a time"
 # MTLPretrain's and MetabaselineKendallPretrain's eval: one step of 16 episodes
 ONE_STEP_CUT = {"test_episode": 16, "test_epoch": 1}
+
+# phase 22: the CNN backbones no shipped config names, each swapped into a
+# shipped head's config at its JAX defaults (NOT shipped traffic), with the
+# features each head reads; S2M2 trains on flat batches (phase 20's cell)
+SLICE12_CELLS = {
+    "DeepBDC:resnet18Bdc": "resnet18Bdc's 2080 BDC features of its [512, 8, 10] map: "
+                           "bdc_pool at M = 80",
+    "MCL:resnet12_mcl": "resnet12_mcl's [640, 8, 9] map",
+    "R2D2:resnet12_r2d2": "resnet12_r2d2's 640 pooled features",
+    "MTL:resnet12MTLofficial": "resnet12MTLofficial's 49280 flat features (NCHW); 100 inner "
+                               "steps an episode",
+    "ProtoNet:WRN": "WRN-28-10's 640 max-pooled features",
+}
+SLICE12_FLAT = {"S2M2:resnet18": "resnet18's 512 pooled features; mixup + 4 flips (640 rows a "
+                                 "step); a cosine head adapted 140 SGD steps an episode"}
+# phase 22's card-vs-CPU episodes take this many query segments (its
+# backbones' float32 forwards on the host's CPU: 0.02 to 0.05 TFLOP a
+# segment; WRN-28-10's ≈ 0.2, so fewer)
+SLICE12_CPU_QUERIES = 16
+WRN_CPU_QUERIES = 8
+# resnet18Bdc's BDC pool: the [512, 8, 10] map of a [1, 128, 157] segment
+M_RESNET18_BDC = 8 * 10
+BDC18_TRAIN_SHAPE = (75, 64, M_RESNET18_BDC)
 
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
@@ -1049,8 +1093,10 @@ def loss_card_vs_cpu(cfg, batch) -> tuple:
     from audio_fewshot_tpu_torch.models.backbones.layers import Dropout
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
+    from audio_fewshot_tpu_torch.registry import BACKBONES
+
     cfg = copy.deepcopy(cfg)
-    if cfg["backbone"]["name"] != "Conv64F":
+    if "drop_rate" in inspect.signature(BACKBONES.get(cfg["backbone"]["name"])).parameters:
         cfg["backbone"]["kwargs"]["drop_rate"] = 0.0
     init_seed(int(cfg["seed"]))
     method_cpu = build_method(cfg).train()
@@ -1338,6 +1384,203 @@ def slice11_phase(g: int) -> None:
     print(flush=True)
 
 
+def bdc_backbone_calls(cfg) -> int:
+    """The backbone calls of ``run_test`` on ``cfg``: DeepBDC's val
+    calibration steps, the warm-up and the test steps."""
+    from audio_fewshot_tpu_torch.data import get_dataloader
+
+    return (len(get_dataloader(cfg, "val")[0]) + 1
+            + cfg["test_epoch"] * len(get_dataloader(cfg, "test")[0]))
+
+
+def slice12_cell(cell: str) -> tuple:
+    """Phase 22's cell of a backbone swapped into a shipped head: eval through
+    ``Test`` at phase 15's cut (at the cell's own episodes a step), one
+    float32 episode card vs CPU (``SLICE12_CPU_QUERIES`` query segments,
+    WRN's ``WRN_CPU_QUERIES``; MTL at ``MTL_CARD_ITER`` inner steps), one
+    training epoch at phase 13's
+    cut.  BDC launches: DeepBDC's a backbone call each (the backward one a
+    train step), every other cell's 0.  Returns the (forward, backward)
+    launches."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    t0 = time.time()
+    bdc = cell.startswith("DeepBDC")
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hcfg = slice_config(classifier=cell, **RESNET_EVAL_CUT)
+    eps, ms, peak_gib, acc, eval_launches = run_test(hcfg)
+    want_eval = (bdc_backbone_calls(hcfg), 0) if bdc else (0, 0)
+    print(f"[slice12-eval] {hcfg['tag']} at full width ({SLICE12_CELLS[cell]}), bf16 backbone, "
+          f"fp32 head, {hcfg['test_episode_size']} episodes a step, {hcfg['test_epoch']} "
+          f"epoch(s) of {hcfg['test_episode']} test episodes: accuracy {acc:.3f}, eval eps/s by "
+          f"epoch {[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory "
+          f"{peak_gib:.2f} GiB, BDC launches {eval_launches} (expected {want_eval})", flush=True)
+    if not math.isfinite(acc) or tuple(eval_launches) != want_eval:
+        raise AssertionError(f"{cell} eval: accuracy {acc}, BDC launches {eval_launches}")
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    ccfg = slice_config(classifier=cell, precision="fp32")
+    note = ""
+    if cell.startswith("MTL"):
+        ccfg["classifier"]["kwargs"]["inner_param"]["iter"] = MTL_CARD_ITER
+        note = f"; at {MTL_CARD_ITER} inner steps, NOT the shipped 100 (chaotic in float32)"
+    with cudnn_deterministic():
+        rel, agree, shape = card_vs_cpu(ccfg, WRN_CPU_QUERIES if cell.endswith("WRN") else
+                                        SLICE12_CPU_QUERIES)
+    print(f"[slice12-eval] {cell} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+          f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms{note}), "
+          f"argmax agreement {agree:.4f}", flush=True)
+    if not rel <= LOGIT_REL_LIMIT:
+        raise AssertionError(f"float32 {cell} card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as result_root:
+        tcfg = train.slice_config(result_root, classifier=cell, **HEAD_TRAIN_CUT)
+        tcfg["test_episode_size"] = hcfg["test_episode_size"]
+        rows, peak_gib, train_launches = run_trainer(tcfg)
+    steps = sum(len(r["train_losses"]) for r in rows)
+    val_steps = 2 * -(-tcfg["test_episode"] // tcfg["test_episode_size"])
+    want_train = (steps + val_steps, steps) if bdc else (0, 0)
+    for r in rows:
+        print(f"[slice12-train] {tcfg['tag']} at full width, bf16, augment on, one episode a "
+              f"step, epoch {r['epoch']} of {r['train_eps_count']} steps: {r['train_eps']:.2f} "
+              f"train eps/s, step {r['step_ms']:.1f} ms, loss {r['train_losses'][0]:.4f} -> "
+              f"{r['train_losses'][-1]:.4f}, val acc {r['val_acc']:.3f}, test acc "
+              f"{r['test_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches "
+              f"{train_launches} (expected {want_train})", flush=True)
+    if tuple(train_launches) != want_train:
+        raise AssertionError(f"{cell} training: BDC launches {train_launches}")
+    torch.cuda.empty_cache()
+    print(f"[slice12] {cell}: {time.time() - t0:.1f} s", flush=True)
+    return (eval_launches[0] + train_launches[0], eval_launches[1] + train_launches[1])
+
+
+def ifsl_cycle(g: int) -> None:
+    """Phase 22's IFSL cycle on the synthetic root, Conv64F's 1600 flat
+    features, 25 classes, every path in one result root of its own:
+    IfslPretrain trains one flat epoch and saves ``emb_func`` and
+    ``classifier``; the featuring run over them writes the [25, 1600] class
+    means; ``ifsl_5shot_iid_seed42`` (DMatchingNet) loads all three
+    (``pretrain_path``, ``cls_path``, ``feature_path``; each held equal to
+    what stages 1-2 wrote) and runs one eval epoch at phase 15's cut, then
+    one float32 episode card vs CPU.  No BDC launch."""
+    import numpy as np
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        pcfg = train.slice_config(root, classifier="IfslPretrain", **FLAT_TRAIN_CUT)
+        pcfg["test_episode_size"] = FLAT_EVAL_EPISODES
+        rows, peak_gib, launches = run_trainer(pcfg)
+        r = rows[0]
+        print(f"[ifsl] stage 1: {pcfg['tag']} (Conv64F, 1600 features, 25 classes), one flat "
+              f"epoch of {r['train_eps_count']} steps of {pcfg['batch_size']}: "
+              f"{r['train_segments_per_s']:.1f} segments/s, step {r['step_ms']:.1f} ms, loss "
+              f"{r['train_losses'][0]:.4f} -> {r['train_losses'][-1]:.4f}, val acc "
+              f"{r['val_acc']:.3f}; peak memory {peak_gib:.2f} GiB; BDC launches {launches}",
+              flush=True)
+        ckpt = os.path.join(root, "{}-{}-{}-{}-{}-{}".format(
+            "IfslPretrain", os.path.basename(pcfg["data_root"]), pcfg["backbone"]["name"],
+            pcfg["way_num"], pcfg["shot_num"], pcfg["tag"]), "checkpoints")
+        parts = {p: os.path.join(ckpt, f"{p}_last.pth") for p in ("emb_func", "classifier")}
+        saved = {p: torch.load(f, map_location="cpu", weights_only=True)
+                 for p, f in parts.items()}
+        feature_path = os.path.join(root, "ifsl_features.npy")
+        fcfg = copy.deepcopy(pcfg)
+        fcfg["classifier"]["kwargs"].update(cls_classifier_path=parts["classifier"],
+                                            ifsl_pretrain_param={
+                                                "norm": False, "featuring": True,
+                                                "feature_path": feature_path})
+        fcfg.update(pretrain_path=parts["emb_func"], tag=pcfg["tag"] + "_featuring")
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        t1 = time.time()
+        trainer = train.Trainer(0, fcfg, device="cuda")
+        trainer.train_loop()
+        torch.cuda.synchronize()
+        means = np.load(feature_path)
+        print(f"[ifsl] stage 2: the featuring run over stage 1's parts wrote {means.dtype} "
+              f"{means.shape} to {os.path.basename(feature_path)} in {time.time() - t1:.1f} s "
+              f"(Trainer set-up included); classes covered "
+              f"{int((np.abs(means).sum(axis=1) > 0).sum())}", flush=True)
+        if not (means.shape == (trainer.method.num_class, trainer.method.feat_dim)
+                and np.isfinite(means).all()):
+            raise AssertionError(f"featuring wrote {means.shape}")
+        dcfg = train.slice_config(root, classifier="DMatchingNet:seed42",
+                                  test_episode=RESNET_EVAL_CUT["test_episode"])
+        dcfg["classifier"]["kwargs"]["ifsl_param"].update(feature_path=feature_path,
+                                                          cls_path=parts["classifier"])
+        dcfg.update(pretrain_path=parts["emb_func"], test_episode_size=16)
+        trainer = train.Trainer(0, dcfg, device="cuda")
+        method = trainer.method
+        own = method.state_dict()
+        same = (all(torch.equal(own[k].cpu(), v) for k, v in saved["emb_func"].items() if k in own)
+                and all(torch.equal(own["utils.linear." + k[len("classifier."):]].cpu(), v)
+                        for k, v in saved["classifier"].items())
+                and np.array_equal(method.utils.features.cpu().numpy(), means))
+        t1 = time.time()
+        acc, ci = trainer._validate(0, trainer.test_loader[0], trainer.test_bank)
+        torch.cuda.synchronize()
+        eval_s = time.time() - t1
+        launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+        print(f"[ifsl] stage 3: {dcfg['tag']} (DMatchingNet) read stage 1's emb_func and "
+              f"classifier and stage 2's means: equal {same}; one eval epoch of "
+              f"{dcfg['test_episode']} test episodes, {dcfg['test_episode_size']} a step: "
+              f"accuracy {acc:.3f} ± {ci:.3f}, {dcfg['test_episode'] / eval_s:.2f} eval eps/s "
+              f"(the first step's plans included); BDC launches {launches} (expected (0, 0))",
+              flush=True)
+        if not (same and math.isfinite(acc)) or any(launches):
+            raise AssertionError("DMatchingNet did not read stages 1-2, or its eval failed")
+        del trainer, method
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = False
+        ccfg = slice_config(classifier="DMatchingNet:seed42", precision="fp32")
+        ccfg["classifier"]["kwargs"]["ifsl_param"].update(feature_path=feature_path,
+                                                          cls_path=parts["classifier"])
+        with cudnn_deterministic():
+            rel, agree, shape = card_vs_cpu(ccfg, g)
+        print(f"[ifsl] stage 3 fp32 segment logits {shape} (both artifacts loaded): card vs "
+              f"CPU max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
+              f"{agree:.4f}", flush=True)
+        if not rel <= LOGIT_REL_LIMIT:
+            raise AssertionError("float32 DMatchingNet (IFSL cycle) disagrees on the card and CPU")
+        torch.backends.cudnn.allow_tf32 = True
+    print(f"[ifsl] the cycle: {time.time() - t0:.1f} s", flush=True)
+
+
+def slice12_phase() -> tuple:
+    """Phase 22: every cell of ``SLICE12_CELLS`` through ``slice12_cell``,
+    S2M2 on resnet18 through ``slice10_cell`` (flat training; no BDC
+    launch), and ``ifsl_cycle``, each card-vs-CPU episode at
+    ``SLICE12_CPU_QUERIES`` query segments (WRN's fewer).  Returns
+    resnet18Bdc's BDC launches (forward, backward)."""
+    import torch
+
+    t_phase = time.time()
+    forward = backward = 0
+    for cell in SLICE12_CELLS:
+        f, b = slice12_cell(cell)
+        forward, backward = forward + f, backward + b
+    for cell, what in SLICE12_FLAT.items():
+        (ef, eb), (tf, tb, *_), _ = slice10_cell(cell, SLICE12_CPU_QUERIES, "slice12", what)
+        if any((ef, eb, tf, tb)):
+            raise AssertionError(f"{cell}: BDC launches in phase 22")
+    ifsl_cycle(SLICE12_CPU_QUERIES)
+    torch.cuda.empty_cache()
+    print(f"[slice12] phase 22 wall {time.time() - t_phase:.1f} s; resnet18Bdc's BDC launches: "
+          f"forward {forward}, backward {backward}", flush=True)
+    print(flush=True)
+    return forward, backward
+
+
 def main() -> int:
     import torch
 
@@ -1418,8 +1661,13 @@ def main() -> int:
     # is no multiple of 4 and the shifted pointer take the kernel's scalar
     # loads, the others its tensor-map loads; each path runs at every padded
     # d = 16, 32, ..., 128
+    # timed, with the gram's bmm beside: the main path's two shapes, phase
+    # 20's flat batch and phase 22's resnet18Bdc eval step (M = 80)
+    timed = {(1200, m_main), (b_main, m_main), (FLAT_SHAPE[0], m_main),
+             (b_main, M_RESNET18_BDC)}
     for b, d, m, shift in [
             (1200, 64, m_main, 0), (b_main, 64, m_main, 0), (FLAT_SHAPE[0], 64, m_main, 0),
+            (b_main, 64, M_RESNET18_BDC, 0), (BDC18_TRAIN_SHAPE[0], 64, M_RESNET18_BDC, 0),
             *[(b, 64, m_main, 0) for b in sorted(b_tta | {tta_augmented})], (2, 16, 45, 0),
             (3, 100, 77, 0), (5, 128, 33, 0), (3, 128, 40, 0), (2, 100, 76, 0),
             (2, 96, 300, 0), (2, 80, 64, 0), (3, 48, 8, 0), (4, 32, 12, 0),
@@ -1438,8 +1686,16 @@ def main() -> int:
         if not (err_tri <= ERR_LIMIT and err_full <= ERR_LIMIT):
             raise AssertionError(f"bdc_pool kernel disagrees with plain at {(b, d, m)}")
         max_err = max(max_err, err_tri, err_full)
+        if m == M_RESNET18_BDC:
+            x64 = x.double()
+            err64 = (full.double() - bdc_from_gram(torch.bmm(x64, x64.mT), log_t)).abs().max().item()
+            print(f"[kernel] bdc_pool {(b, d, m)} (phase 22's resnet18Bdc): max_abs_err vs "
+                  f"float64 {err64:.3e} (limit {ERR_LIMIT:g})")
+            if not err64 <= ERR_LIMIT:
+                raise AssertionError(f"bdc_pool kernel is off float64 at {(b, d, m)}")
+            del x64
         del tri, full, ref
-        if d == 64 and b in (1200, b_main, FLAT_SHAPE[0]):
+        if d == 64 and (b, m) in timed:
             # enough buffers that together they exceed the L2 cache twice over
             n_buf = max(1, math.ceil(2 * L2_BYTES / (4 * x.numel())))
             xs = [x] + [torch.randn((b, d, m), device="cuda", generator=gen)
@@ -1449,14 +1705,14 @@ def main() -> int:
             plain_ms = time_ms(lambda: triuvec(bdc_pool(next(feed), log_t)))
             gram_ms = time_ms(lambda: torch.bmm(y := next(feed), y.mT))
             bound_ms, bound_by = bdc_bound_ms(b, d, m, peaks)
-            times[b] = (ms, plain_ms, bound_ms, bound_by)
+            times[(b, m)] = (ms, plain_ms, bound_ms, bound_by)
             print(f"[kernel] bdc_pool {(b, d, m)}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"over {n_buf} input buffer(s) in turn; "
                   "library: none (no single PyTorch call computes the BDC pool)")
             print(f"[kernel] context: torch.bmm(x, x.mT) alone, the gram and not "
                   f"the function, {gram_ms:.4f} ms")
-            if b == b_main:
+            if (b, m) == (b_main, m_main):
                 print(f"[kernel] context: a recorded constant, not measured in this "
                       f"run: before its redesign for Hopper the kernel took "
                       f"{BDC_POOL_MS_FIRST_DESIGN} ms at this shape on an NVIDIA "
@@ -1547,7 +1803,8 @@ def main() -> int:
     bwd_err = 0.0
     bwd_times = None
     for b, d, m, shift in [
-            (*TRAIN_SHAPE, 0), (*FLAT_SHAPE, 0), (2, 16, 45, 0), (3, 100, 77, 0), (5, 128, 33, 0),
+            (*TRAIN_SHAPE, 0), (*FLAT_SHAPE, 0), (*BDC18_TRAIN_SHAPE, 0), (2, 16, 45, 0),
+            (3, 100, 77, 0), (5, 128, 33, 0),
             (3, 128, 40, 0), (2, 100, 76, 0), (2, 96, 300, 0), (2, 80, 64, 0),
             (3, 48, 8, 0), (4, 32, 12, 0), (2, 16, 8, 0), (2, 64, m_main, 1),
             (2, 32, 13, 0), (2, 48, 9, 0), (2, 80, 65, 0), (2, 96, 301, 0),
@@ -1570,7 +1827,16 @@ def main() -> int:
         if not (ex <= GRAD_REL_LIMIT and et <= GRAD_REL_LIMIT):
             raise AssertionError(f"bdc_pool_backward disagrees with plain at {(b, d, m)}")
         bwd_err = max(bwd_err, (gx - px).abs().max().item(), (gt - pt).abs().max().item())
-        if (b, d, m) in (TRAIN_SHAPE, FLAT_SHAPE):
+        if (b, d, m) == BDC18_TRAIN_SHAPE:
+            tx, tt = bdc_pool_triu_vjp(x.double(), lt.double(), gy.double())
+            k64, p64 = max(rel_err(gx, tx), rel_err(gt, tt)), max(rel_err(px, tx), rel_err(pt, tt))
+            print(f"[backward] {(b, d, m)} (phase 22's resnet18Bdc training): vs float64, "
+                  f"relative to the max abs: kernel {k64:.3e}, plain {p64:.3e} (limit "
+                  f"{ERR_LIMIT:g} for the kernel)")
+            if not k64 <= ERR_LIMIT:
+                raise AssertionError(f"bdc_pool_backward is off float64 at {(b, d, m)}")
+            del tx, tt
+        if (b, d, m) in (TRAIN_SHAPE, FLAT_SHAPE, BDC18_TRAIN_SHAPE):
             # deterministic: a second launch on the same input, the same bits
             gx2, gt2 = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
             if not (torch.equal(gx, gx2) and torch.equal(gt, gt2)):
@@ -1853,16 +2119,17 @@ def main() -> int:
     slice9_phase(g)
     pre_forward, pre_backward = slice10_phase(g)
     slice11_phase(g)
+    r18_forward, r18_backward = slice12_phase()
 
     # -- 8. report --------------------------------------------------------------
-    ms, plain_ms, bound_ms, bound_by = times[b_main]
+    ms, plain_ms, bound_ms, bound_by = times[(b_main, m_main)]
     bms, bplain_ms, bbound_ms, bbound_by = bwd_times
     print(json.dumps({"kernels": [{
         "name": "bdc_pool",
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc_pallas.py:23",
-        "launches": launches + pre_forward,
+        "launches": launches + pre_forward + r18_forward,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1874,7 +2141,7 @@ def main() -> int:
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool_backward.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc.py:23",
-        "launches": train_backward + pre_backward,
+        "launches": train_backward + pre_backward + r18_backward,
         "max_abs_err": bwd_err,
         "ms": bms,
         "plain_ms": bplain_ms,

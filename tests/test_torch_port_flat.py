@@ -232,6 +232,12 @@ def no_tensorboard(monkeypatch):
     """Both packages' TensorBoard writers as no-ops (as without tensorboard
     installed): importing tensorboard pulls in TensorFlow, seconds a
     process, and no test here reads the event files."""
+    no_tensorboard_writers(monkeypatch)
+
+
+def no_tensorboard_writers(monkeypatch):
+    """``no_tensorboard`` on a given ``MonkeyPatch`` (for module-scoped
+    fixtures)."""
     for module, writer in ((port_train_module, TensorboardWriter),
                            (jax_train_module, JaxTensorboardWriter)):
         class NoWriter(writer):

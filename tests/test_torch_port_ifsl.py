@@ -378,11 +378,14 @@ def test_head_weights_cross_under_the_reference_names(variant):
 
 
 def test_options_that_raise(feature_path, tmp_path):
-    """``cls_path`` (IfslPretrain's classifier) is not ported; an unknown
+    """A ``cls_path`` file that does not hold IfslPretrain's ``classifier``
+    part (``test_torch_port_ifsl_cycle.py`` loads one that does), an unknown
     preprocess mode and a ``feature_path`` of the wrong shape raise."""
     cfg = config()
-    cfg["classifier"]["kwargs"]["ifsl_param"]["cls_path"] = "classifier_best.pth"
-    with pytest.raises(NotImplementedError, match="IfslPretrain"):
+    not_a_part = str(tmp_path / "emb_func_best.pth")
+    torch.save({"emb_func.layer1.0.weight": torch.zeros(1)}, not_a_part)
+    cfg["classifier"]["kwargs"]["ifsl_param"]["cls_path"] = not_a_part
+    with pytest.raises(KeyError, match="classifier"):
         build_method(cfg)
     cfg = config()
     cfg["classifier"]["kwargs"]["ifsl_param"]["preprocess_after_split"] = "dl2n"

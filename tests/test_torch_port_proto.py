@@ -253,7 +253,7 @@ def test_use_bpa_and_is_clap_raise():
     holds it against the JAX package); ``is_clap`` still raises."""
     assert build_method(proto_config(classifier={"name": "ProtoNet",
                                                  "kwargs": {"use_bpa": True}})).use_bpa
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(NotImplementedError, match="the CLAP encoder"):
         build_method(proto_config(is_clap=True))
 
 

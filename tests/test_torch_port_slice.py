@@ -217,7 +217,8 @@ def test_port_imports_nothing_of_jax():
             "models/losses.py", "registry.py", "models/heads/metal.py", "models/heads/mtl.py",
             "models/heads/leo.py", "models/heads/versa.py", "models/heads/ifsl.py",
             "models/heads/finetuning.py", "models/heads/pretrains.py", "data/loader.py",
-            "data/sampler.py", "episode.py"} <= scanned
+            "data/sampler.py", "episode.py", "models/backbones/resnet18.py",
+            "models/backbones/wrn.py"} <= scanned
     assert not offenders, offenders
 
 

@@ -162,12 +162,17 @@ def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
         run_trainer_resume.main([str(tmp_path)])
 
 
-@pytest.mark.parametrize("over, match", [
-    ({"profile_steps": 2}, "profile_steps"),
-    ({"featuring": True}, "featuring"),
+@pytest.mark.parametrize("over, error, match", [
+    ({"profile_steps": 2}, NotImplementedError, "profile_steps"),
+    ({"classifier": {"name": "IfslPretrain", "kwargs": {
+        "num_class": 10, "ifsl_pretrain_param": {"featuring": True}}}},
+     ValueError, "feature_path"),
 ], ids=["profile_steps", "featuring"])
-def test_unported_training_features_raise(tmp_path, over, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_training_features_raise(tmp_path, over, error, match):
+    """``profile_steps`` is not ported; IFSL's featuring pass is
+    (``test_torch_port_ifsl_cycle.py``), and refuses to run without its
+    ``feature_path``."""
+    with pytest.raises(error, match=match):
         Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu").train_loop()
 
 
