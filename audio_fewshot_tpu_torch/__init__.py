@@ -8,17 +8,18 @@ Layer map:
   config      — YAML + includes + var_dict + CLI merge
   data        — episodic sampler, spectrogram datasets, device segment bank
   episode     — dense masked episode batches (clip id + mask for ragged clips)
-  models      — backbones (resnet12Bdc, the four-conv family) and heads
-                (DeepBDC, ProtoNet), nn.Modules; init_type re-initialisation
+  models      — backbones (the resnet, four-conv, ViT, Swin and CLAP
+                families) and heads, nn.Modules; init_type re-initialisation
   ops         — BDC pool: plain PyTorch version and hand-written CUDA kernels
                 (forward and backward); spectrogram augmentations (train and
-                TTA)
+                TTA); the log-mel front end
   optim       — torch.optim groups and per-epoch LR schedules
   train       — episodic trainer: train, val, test, checkpoints, resume
   eval        — episodic test harness with the energy calibration pass and
                 the energy-OOD TTA re-vote
   utils       — aggregation, weight conversion, checkpoints, meters,
-                logging, seeding
+                logging, seeding, feature dumps
+  extract_clap_embeddings — the CLAP embedding extraction CLI
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,10 @@ calibration pass on the val split (for methods that support it), one
 warm-up step, then ``test_epoch`` passes over the test loader, and reports
 a 95 % CI per epoch and over the epoch means.  With
 ``enhance_classification_via_energy`` each test step is ``tta_eval_step``,
-the energy-OOD TTA re-vote.  It runs on ``cuda`` unless ``device`` says
+the energy-OOD TTA re-vote.  With ``dump_features`` (and a result dir) it
+first writes ``plots/featdata_*.npz`` for the first test batch
+(``utils.features``).  It runs on ``cuda`` unless ``device`` says
 otherwise, and raises when no card is there.
-
-``dump_features`` is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .ops.audio_augmentations import batch_augment_spectrogram
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.aggregate import clip_vote_counts
 from .utils.checkpoint import BEST, load_model
+from .utils.features import dump_episode_features
 
 
 #: the model part of each shipped config that a chip cell runs (the
@@ -166,11 +167,14 @@ SLICE_MODELS.update({
         "classifier": {"name": "MetabaselineKendallPretrain", "kwargs": {"num_class": 25}},
         "backbone": _RESNET12, "tag": "kendall_pretrain_no_shipped_config"},
 })
-# the CNN backbones no shipped config names, each swapped into a shipped
+# the backbones no shipped config names, each swapped into a shipped
 # head's config at its JAX defaults ("<head>:<backbone>", NOT shipped
 # traffic); WRN-28-10 and resnet12MTLofficial at fewer episodes a step (their
 # first stages' bf16 activations at 16 episodes, 4496 segments, would be
-# 28.9 GB and 14.5 GB each); IfslPretrain (no shipped config) on
+# 28.9 GB and 14.5 GB each); ProtoNet on swin_t and swin_mini; ProtoNet on
+# CLAPEmbeddingBackbone (a data_root of extracted embeddings) and with
+# is_clap on the shipped Conv64F config (the random-init CLAP encoder in its
+# place: a data_root of 1-D waveforms); IfslPretrain (no shipped config) on
 # config/backbones/Conv64F.yaml's 1600 flat features, the first stage of the
 # IFSL cycle that ends in DMatchingNet's config/ifsl/ifsl_5shot_iid_seed42
 for key, backbone, extra in (
@@ -182,10 +186,18 @@ for key, backbone, extra in (
             "num_channels": 1}}, {"test_episode_size": 8}),
         ("S2M2:resnet18", {"name": "resnet18", "kwargs": {"num_channels": 1}}, {}),
         ("ProtoNet:WRN", {"name": "WRN", "kwargs": {"num_channels": 1}},
-         {"test_episode_size": 4})):
+         {"test_episode_size": 4}),
+        ("ProtoNet:swin_t", {"name": "swin_t", "kwargs": {"num_channels": 1}}, {}),
+        ("ProtoNet:swin_mini", {"name": "swin_mini", "kwargs": {"num_channels": 1}}, {}),
+        ("ProtoNet:CLAPEmbeddingBackbone", {"name": "CLAPEmbeddingBackbone", "kwargs": None},
+         {}),
+        ("ProtoNet:is_clap", {**_CONV64F, "kwargs": {**_CONV64F["kwargs"],
+                                                     "allow_random_init": True}},
+         {"is_clap": True})):
     head = key.partition(":")[0]
     SLICE_MODELS[key] = {**copy.deepcopy(SLICE_MODELS[head]), "backbone": backbone, **extra,
                          "tag": f"{SLICE_MODELS[head]['tag']}_{backbone['name']}_not_shipped"}
+SLICE_MODELS["ProtoNet:is_clap"]["tag"] = "proto_5shot_iid_seed0_is_clap_not_shipped"
 SLICE_MODELS["IfslPretrain"] = {
     "classifier": {"name": "IfslPretrain", "kwargs": {"num_class": 25}},
     "backbone": _CONV64F, "save_part": ["emb_func", "classifier"],
@@ -217,7 +229,10 @@ def slice_config(test_episode: int = 64, test_epoch: int = 2, precision: str = "
     config) on resnet12 at their defaults; ``"<head>:<backbone>"``: a
     shipped head's config on a backbone no shipped config names (DeepBDC on
     resnet18Bdc, MCL on resnet12_mcl, R2D2 on resnet12_r2d2, MTL on
-    resnet12MTLofficial, S2M2 on resnet18, ProtoNet on WRN), IfslPretrain on
+    resnet12MTLofficial, S2M2 on resnet18, ProtoNet on WRN, swin_t, swin_mini
+    and ``CLAPEmbeddingBackbone``; ``"ProtoNet:is_clap"``: the CLAP encoder
+    in place of Conv64F; the CLAP cells need a ``data_root`` of embeddings or
+    of waveforms), IfslPretrain on
     Conv64F and ``"DMatchingNet:seed42"`` (``ifsl_5shot_iid_seed42``).  Each
     with its headers, as a dict (no YAML needed), cut
     to size: ``test_episode`` 600 → 64 and ``test_epoch`` 5 → 2 by default,
@@ -349,8 +364,6 @@ class Test:
                  result_path: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        if config.get("dump_features"):
-            raise NotImplementedError("dump_features is not ported yet")
         if config.get("precision", "bf16") == "fp32":
             # float32 means float32: cuDNN convolutions default to TF32
             torch.backends.cudnn.allow_tf32 = False
@@ -382,6 +395,8 @@ class Test:
         self.val_bank, self.test_bank = self._setup_segment_banks()
         #: episodes per second of each test epoch (host clock, synchronised)
         self.epoch_eps: List[float] = []
+        #: the ``featdata_*.npz`` files ``dump_features`` wrote
+        self.feature_dumps: List[str] = []
         requested = bool(config.get("enhance_classification_via_energy", False))
         supported = getattr(self.method, "supports_energy_ood", False)
         if requested and not supported:
@@ -416,6 +431,22 @@ class Test:
         if self.val_loader is None:
             return None, banks[0]
         return banks[0], banks[1]
+
+    def _dump_features(self) -> None:
+        """``dump_features``: the first test batch's ``featdata_*.npz``."""
+        if not self.result_path:
+            self.logger.warning("dump_features set but no result dir — skipped")
+            return
+        host_batch = next(iter(self.test_loader[0].epoch(0)))
+        if self.test_bank is None:
+            batch = host_batch.to(self.device, self.transfer_dtype)
+        else:
+            batch = materialize_episode_batch(host_batch.to(self.device), self.test_bank)
+        self.feature_dumps = dump_episode_features(
+            self.method, batch,
+            self.result_path, normalize=bool(self.config.get("dump_features_normalize", True)),
+            proj_method=str(self.config.get("dump_features_method", "tsne")),
+            logger=self.logger)
 
     def _eval_step(self, host_batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-episode accuracy ``[E]`` (on the device) of one host batch;
@@ -454,6 +485,8 @@ class Test:
             self.tta_mean, self.tta_std = resolve_tta_stats(cfg, self.logger)
             self.logger.info("energy-OOD TTA enabled: %d augmentations, top %.0f%% flagged",
                              self.num_augmentations, 100 * self.method.ood_fraction)
+        if cfg.get("dump_features", False):
+            self._dump_features()
         # the TTA's draws: one generator seeded seed + 7, split into a
         # generator of its own per step
         master = torch.Generator().manual_seed(int(cfg.get("seed", 0)) + 7)

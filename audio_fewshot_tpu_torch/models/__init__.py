@@ -10,6 +10,8 @@ from . import backbones, heads  # noqa: F401  (populate registries)
 from .base import EpisodeSetting, MethodBase, ModelType
 
 _PRECISIONS = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the configured backbone's kwargs that ``is_clap`` hands to ``CLAPBackbone``
+_CLAP_KEYS = ("checkpoint_path", "allow_random_init", "enable_fusion")
 
 
 def _takes(factory, name: str) -> bool:
@@ -64,7 +66,7 @@ def _map_shape(config: Dict[str, Any], emb_func: torch.nn.Module):
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
             "states no output map shape (the port has it for Conv64F, the resnet12 family but "
-            "resnet12Bdc, resnet18, WRN and the ViTs)")
+            "resnet12Bdc, resnet18, WRN, the ViTs and Swin)")
     return tuple(emb_func.map_shape(segment_shape(config)))
 
 
@@ -79,7 +81,7 @@ def _feature_dim(config: Dict[str, Any], emb_func: torch.nn.Module) -> int:
         raise NotImplementedError(
             f"{config['classifier']['name']} on {config['backbone']['name']}: this backbone "
             "states no flat feature width (the port has it for Conv64F, the resnet12 family, "
-            "resnet18, resnet18Bdc and WRN)")
+            "resnet18, resnet18Bdc, WRN, Swin and the CLAP backbones)")
     return int(emb_func.feature_dim(segment_shape(config)))
 
 
@@ -89,15 +91,18 @@ def build_method(config: Dict[str, Any]) -> MethodBase:
     ``precision`` (default ``bf16``) is the backbone's compute dtype; the
     heads and the logits always compute in float32.  This function leaves
     the process's TF32 switches alone: ``Test`` and ``Trainer`` turn TF32 off
-    for ``fp32`` runs.  ``is_clap`` (the CLAP encoder in place of the configured
-    backbone) is not ported yet and raises."""
+    for ``fp32`` runs.  ``is_clap`` puts ``CLAPBackbone`` (the waveform
+    encoder) in place of a configured backbone whose name does not start
+    with ``CLAP``, keeping only its ``checkpoint_path``,
+    ``allow_random_init`` and ``enable_fusion`` kwargs (the reference drops
+    the configured backbone with its kwargs)."""
     precision = config.get("precision", "bf16")
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(_PRECISIONS)}, got {precision!r}")
-    if config.get("is_clap"):
-        raise NotImplementedError(
-            "is_clap: the CLAP encoder backbone (clap_encoder.py, "
-            "CLAPEmbeddingBackbone) is not ported yet (ROADMAP Queue A, the CLAP encoder)")
+    if config.get("is_clap") and not str(config["backbone"].get("name", "")).startswith("CLAP"):
+        kwargs = config["backbone"].get("kwargs") or {}
+        config = {**config, "backbone": {"name": "CLAPBackbone", "kwargs": {
+            k: v for k, v in kwargs.items() if k in _CLAP_KEYS}}}
 
     cls_factory = CLASSIFIERS.get(config["classifier"]["name"])
     cls_kwargs = dict(config["classifier"].get("kwargs") or {})

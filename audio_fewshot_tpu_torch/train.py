@@ -15,10 +15,12 @@ val accuracy; the best test accuracy is the one AT that epoch), every
 state, which ``resume`` reads back).  It runs on ``cuda`` unless ``device``
 says otherwise, and raises when no card is there.  IfslPretrain with
 ``ifsl_pretrain_param.featuring`` runs ``run_featuring`` in place of the
-epochs.
-
-Not ported yet (``NotImplementedError`` naming the ROADMAP item):
-``profile_steps``.
+epochs.  On a CLAP encoder (``CLAPBackbone``, or ``is_clap``) the backbone's
+``checkpoint_path`` (a flat npz) is loaded into ``emb_func`` before
+``pretrain_path`` and resume.  ``profile_steps`` traces train steps
+[``profile_start``, ``profile_start + profile_steps``) of epoch 0 with
+``torch.profiler`` (CPU, and CUDA on the card) into a Chrome trace under
+``<log_dir>/profile/``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .episode import (DualBatch, EpisodeBatch, FlatBatch, IndexedFlatBatch,
                       materialize_dual_batch, materialize_episode_batch, materialize_flat_batch)
 from .eval import SLICE_MODELS
 from .models import build_method, eval_setting, train_setting
+from .models.backbones.clap_encoder import CLAPAudioEncoder, load_checkpoint
 from .models.backbones.layers import seed_dropout
 from .models.base import MethodBase, ModelType
 from .models.init import init_weights
@@ -84,9 +87,6 @@ class Trainer:
     def __init__(self, rank: int, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        if config.get("profile_steps"):
-            raise NotImplementedError("profile_steps: a torch.profiler window is not ported yet "
-                                      "(ROADMAP Queue A, remaining pieces)")
         if config.get("precision", "bf16") == "fp32":
             # float32 means float32: cuDNN convolutions default to TF32
             torch.backends.cudnn.allow_tf32 = False
@@ -169,6 +169,10 @@ class Trainer:
 
     def _maybe_load_pretrain_or_resume(self) -> None:
         cfg = self.config
+        clap_ckpt = (cfg["backbone"].get("kwargs") or {}).get("checkpoint_path")
+        if clap_ckpt and isinstance(self.method.emb_func, CLAPAudioEncoder):
+            load_checkpoint(self.method.emb_func, clap_ckpt)
+            self.logger.info("loaded CLAP encoder weights from %s", clap_ckpt)
         if cfg.get("pretrain_path"):
             load_part(cfg["pretrain_path"], self.method, part="emb_func")
             self.logger.info("loaded pretrained emb_func from %s", cfg["pretrain_path"])
@@ -348,8 +352,15 @@ class Trainer:
         seed_dropout(self.method, int(torch.randint(2 ** 62, (), generator=gen)))
         self.method.train()
         losses: List[float] = []
+        window = self._profile_window() if epoch == 0 else None
+        profiler = None
         t_epoch = t_end = time.time()
         for step, host_batch in enumerate(self._host_batches(epoch)):
+            if window and step == window[0]:
+                profiler = self._start_profiler()
+            if profiler is not None and step == window[1]:
+                self._stop_profiler(profiler)
+                profiler = None
             self.writer.set_step(epoch * n_steps + step)
             meter.update("data_time", time.time() - t_end)
             t0 = time.time()
@@ -376,6 +387,8 @@ class Trainer:
                         meter.last("acc"), meter.avg("acc"),
                     )
                 )
+        if profiler is not None:  # the epoch ended inside the window
+            self._stop_profiler(profiler)
         wall = time.time() - t_epoch
         record.update(train_losses=losses, step_ms=1e3 * meter.avg("calc_time"))
         if flat:
@@ -385,6 +398,32 @@ class Trainer:
         else:
             record["train_eps"] = len(losses) * episode_size / max(wall, 1e-9)
         return meter.avg("loss")
+
+    def _profile_window(self) -> Optional[Tuple[int, int]]:
+        """The traced steps [start, stop) of epoch 0, or None."""
+        steps = int(self.config.get("profile_steps", 0) or 0)
+        start = int(self.config.get("profile_start", 2))
+        return (start, start + steps) if steps > 0 else None
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
+        """Stop ``profiler`` after the device's work and export its Chrome
+        trace under ``<log_dir>/profile/``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out_dir = os.path.join(self.log_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, "train_steps_{}-{}.json".format(*self._profile_window()))
+        profiler.export_chrome_trace(path)
+        self.logger.info("profiler trace written to %s", path)
 
     @torch.no_grad()
     def _validate(self, epoch: int, loader, bank=None) -> Tuple[float, float]:

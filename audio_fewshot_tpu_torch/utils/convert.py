@@ -32,11 +32,14 @@ dicts of numpy arrays, so this module needs no JAX.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..models.backbones.swin import SWIN_FACTORS
 
 
 def _conv(w) -> np.ndarray:
@@ -240,6 +243,116 @@ def _vit(params, stats, state) -> None:
             state[f"{pre}.mlp.{fc}.bias"] = np.asarray(b[fc]["bias"])
 
 
+
+def _swin_block_keys(s: int, b: int) -> Dict[str, str]:
+    """The flax names of block ``b`` of stage ``s`` (``stage{s}_block{b}``'s
+    paths) → the port's keys (the reference's, under ``stage{s+1}``)."""
+    pre = f"stage{s + 1}.layers.{b // 2}.{b % 2}."
+    att, mlp = pre + "attention_block.fn.", pre + "mlp_block.fn."
+    return {"norm1/scale": att + "norm.weight", "norm1/bias": att + "norm.bias",
+            "attn/qkv/kernel": att + "fn.to_qkv.weight", "attn/qkv/bias": att + "fn.to_qkv.bias",
+            "attn/proj/kernel": att + "fn.to_out.weight", "attn/proj/bias": att + "fn.to_out.bias",
+            "attn/rel_pos_bias": att + "fn.rel_pos_bias",
+            "norm2/scale": mlp + "norm.weight", "norm2/bias": mlp + "norm.bias",
+            "fc1/kernel": mlp + "fn.net.0.weight", "fc1/bias": mlp + "fn.net.0.bias",
+            "fc2/kernel": mlp + "fn.net.2.weight", "fc2/bias": mlp + "fn.net.2.bias"}
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _merge_kernel(k, f: int) -> np.ndarray:
+    """A patch merge's flax kernel ``[(kh, kw, c), out]`` → the Linear's
+    ``[out, (c, kh, kw)]`` (the reference's unfold order)."""
+    k = np.asarray(k)
+    cff, out = k.shape
+    return np.ascontiguousarray(
+        k.reshape(f, f, cff // (f * f), out).transpose(3, 2, 0, 1).reshape(out, cff))
+
+
+def _swin(params, stats, state, factors, prefix: str = "") -> None:
+    """Swin: ``merge{s}`` → ``stage{s+1}.patch_partition.linear`` (the
+    kernel reordered from (kh, kw, c) to (c, kh, kw)); ``stage{s}_block{b}``
+    → ``stage{s+1}.layers.{b//2}.{b%2}.*`` with the qkv bias and the per-head
+    table (i − j) as the JAX package holds them; the final ``norm``."""
+    s = 0
+    while f"merge{s}" in params:
+        dst = f"{prefix}stage{s + 1}.patch_partition.linear."
+        state[dst + "weight"] = _merge_kernel(params[f"merge{s}"]["kernel"], factors[s])
+        state[dst + "bias"] = np.asarray(params[f"merge{s}"]["bias"])
+        b = 0
+        while f"stage{s}_block{b}" in params:
+            p = params[f"stage{s}_block{b}"]
+            for path, key in _swin_block_keys(s, b).items():
+                val = p
+                for part in path.split("/"):
+                    val = val[part]
+                state[prefix + key] = _linear(val) if path.endswith("kernel") else np.asarray(val)
+            b += 1
+        s += 1
+    if "norm" in params:
+        state[prefix + "norm.weight"] = np.asarray(params["norm"]["scale"])
+        state[prefix + "norm.bias"] = np.asarray(params["norm"]["bias"])
+
+
+def swin_jax_params(state: Dict[str, Any], factors, prefix: str = "") -> Dict[str, Any]:
+    """The inverse of ``_swin``: the port's Swin keys under ``prefix`` → the
+    JAX package's nested params (numpy)."""
+    def get(key):
+        return _np(state[prefix + key])
+
+    params: Dict[str, Any] = {}
+    s = 0
+    while f"{prefix}stage{s + 1}.patch_partition.linear.weight" in state:
+        w = get(f"stage{s + 1}.patch_partition.linear.weight")
+        f = factors[s]
+        out, cff = w.shape
+        params[f"merge{s}"] = {
+            "kernel": np.ascontiguousarray(
+                w.reshape(out, cff // (f * f), f, f).transpose(2, 3, 1, 0).reshape(cff, out)),
+            "bias": get(f"stage{s + 1}.patch_partition.linear.bias")}
+        b = 0
+        while f"{prefix}stage{s + 1}.layers.{b // 2}.{b % 2}.mlp_block.fn.norm.weight" in state:
+            block: Dict[str, Any] = {}
+            for path, key in _swin_block_keys(s, b).items():
+                *parents, leaf = path.split("/")
+                node = block
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = _linear(get(key)) if leaf == "kernel" else get(key)
+            params[f"stage{s}_block{b}"] = block
+            b += 1
+        s += 1
+    if prefix + "norm.weight" in state:
+        params["norm"] = {"scale": get("norm.weight"), "bias": get("norm.bias")}
+    return params
+
+
+def _clap(params, stats, state) -> None:
+    """The CLAP encoder: ``htsat`` (a Swin body merging as swin_t does) →
+    ``htsat.*``,
+    ``proj0`` / ``proj1`` → Linear; ``CLAPEmbeddingBackbone``'s optional
+    ``proj`` the same way."""
+    if "htsat" in params:
+        _swin(params["htsat"], {}, state, SWIN_FACTORS["swin_t"], prefix="htsat.")
+    for name in ("proj0", "proj1", "proj"):
+        if name in params:
+            state[name + ".weight"] = _linear(params[name]["kernel"])
+            state[name + ".bias"] = np.asarray(params[name]["bias"])
+
+
+def clap_jax_params(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``_clap`` for the encoder: its state dict → the JAX
+    package's nested params (numpy), the tree ``save_params`` writes."""
+    params: Dict[str, Any] = {
+        "htsat": swin_jax_params(state, SWIN_FACTORS["swin_t"], prefix="htsat.")}
+    for name in ("proj0", "proj1"):
+        params[name] = {"kernel": _linear(_np(state[name + ".weight"])),
+                        "bias": _np(state[name + ".bias"])}
+    return params
+
+
 _CONVERTERS = {
     "Conv64F": _convnf,
     "Conv32F": _convnf,
@@ -258,6 +371,9 @@ _CONVERTERS = {
     "vit_small": _vit,
     "VisionTransformer": _vit,
     "ViT": _vit,
+    **{name: functools.partial(_swin, factors=factors) for name, factors in SWIN_FACTORS.items()},
+    "CLAPBackbone": _clap,
+    "CLAPEmbeddingBackbone": _clap,
 }
 
 

@@ -54,7 +54,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-22, which run before it);
+   (printed after phases 9-24, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -91,8 +91,7 @@ Phases (any failure ends the script with a non-zero exit code):
 15. the heads on the plain resnet12 (MetaBaseline, MetaBaselineKendall,
    FEAT, DSN on its flat 12800 features; FRN and CAN on its [640, 8, 9]
    map), each its shipped ``*_5shot_iid_seed0`` at full width through
-   ``Test`` at one epoch of 64 test episodes (Kendall at one epoch of 32:
-   its exact pair count takes seconds a step): eval eps/s of each epoch, ms a
+   ``Test`` at one epoch of 32 test episodes: eval eps/s of each epoch, ms a
    step, peak memory, BDC launches (must be 0), one float32 episode's logits
    on the card against the CPU, and the phase's wall;
 16. their training, each one epoch at phase 13's cut with ``drop_rate`` 0.1
@@ -146,7 +145,7 @@ Phases (any failure ends the script with a non-zero exit code):
    CPU.
 21. RENet and the last pretrainers, each its shipped ``*_5shot_iid_seed0``
    at full width: RENet on resnet12's [640, 8, 9] map (SCR and CCA) through
-   ``Test`` at phase 15's cut (one epoch of 64 test episodes, 16 a step:
+   ``Test`` at phase 15's cut (one epoch of 32 test episodes, 16 a step:
    eps/s, ms a step, peak memory), one float32 episode card vs CPU, one
    training epoch at phase 13's cut and the same epoch with the dual
    loader (``dataloader_num: 2``, flat batches of 12, from
@@ -171,6 +170,27 @@ Phases (any failure ends the script with a non-zero exit code):
    class means, and ``ifsl_5shot_iid_seed42`` (DMatchingNet) loads all
    three (held equal to what was written) for one eval epoch and a float32
    episode card vs CPU.
+23. Swin (NOT shipped traffic): ProtoNet on swin_t at full width
+   (``proto_5shot_iid_seed0`` with its backbone swapped, 768 mean features)
+   through ``Test`` at phase 15's cut with ``dump_features`` (one
+   ``featdata_*.npz`` an episode of the first test batch, 75 rows each
+   held), one float32 episode card vs CPU, one training epoch at phase 13's
+   cut with ``profile_steps: 2`` (its Chrome trace read back for CUDA kernel
+   events); swin_mini one float32 episode card vs CPU.  BDC launches 0.
+24. CLAP (NOT shipped traffic), on roots of waveforms made from the seed:
+   the port's extraction CLI on the card with the full-width random-init
+   HTSAT-tiny (10 s windows at 48 kHz; clips/s, peak memory, unit norms,
+   eight clips' float32 embeddings card vs CPU), ProtoNet on
+   ``CLAPEmbeddingBackbone`` over the embeddings (one eval epoch), ProtoNet
+   with ``is_clap`` on 1-D waveforms of 480 000 samples (one eval epoch at
+   phase 15's cut, one training epoch at phase 13's), and a ``Trainer``
+   step from a ``save_params`` npz through ``checkpoint_path`` (the loaded
+   weights held equal to the saved ones).  BDC launches 0.
+
+To keep the script inside its time limit with phases 23-24, phase 15's
+eval cut (phases 15 and 20-24) is one epoch of 32 test episodes, not 64,
+and the card-vs-CPU episodes of the resnet12-family cells of phases 15, 20
+and 21 take ``CPU_QUERIES`` (16) query segments, as phase 22's.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -216,20 +236,17 @@ HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
 # repeated it within a few per cent and was cut to keep the script inside
 # its time limit
 EVAL_CUT = {"test_episode": 256, "test_epoch": 1}
-# the resnet12-family eval cut of phases 15 and 20: one epoch of 64 test
-# episodes, 4 steps of 16 (a step takes ≈ 0.6 s; phase 12's cut took 200 s
-# of phase 15)
-RESNET_EVAL_CUT = {"test_episode": 64, "test_epoch": 1}
+# the eval cut of phases 15 and 20-24 (phase 15's cut): one epoch of 32 test
+# episodes, 2 steps of 16 (a resnet12 step takes ≈ 0.6 s; phase 12's cut took
+# 200 s of phase 15; 64 episodes before phases 23-24 were added, cut to keep
+# the script inside its time limit)
+RESNET_EVAL_CUT = {"test_episode": 32, "test_epoch": 1}
 # phases 15 and 16: the heads on the plain resnet12, with the map each sees
 RESNET12_HEADS = ("MetaBaseline", "MetaBaselineKendall", "FEAT", "DSN", "FRN", "CAN")
 _FLAT = "resnet12's [640, 4, 5] avg-pooled map, 12800 features"
 RESNET12_MAPS = {"MetaBaseline": _FLAT, "MetaBaselineKendall": _FLAT, "FEAT": _FLAT,
                  "DSN": _FLAT, "FRN": "resnet12's [640, 8, 9] map",
                  "CAN": "resnet12's [640, 8, 9] map"}
-# Kendall's exact eval counts 81.9 M channel pairs for each of 16 x 256
-# queries and 5 prototypes: seconds a step, so a cut of its own
-KENDALL_EVAL_CUT = {"test_episode": 32, "test_epoch": 1}
-KENDALL_CPU_QUERIES = 16
 # Kendall's training recomputes its pair terms in the backward: its peak
 # stays within this many GiB of MetaBaseline's
 KENDALL_PEAK_MARGIN_GIB = 4.0
@@ -313,14 +330,24 @@ SLICE12_CELLS = {
 }
 SLICE12_FLAT = {"S2M2:resnet18": "resnet18's 512 pooled features; mixup + 4 flips (640 rows a "
                                  "step); a cosine head adapted 140 SGD steps an episode"}
-# phase 22's card-vs-CPU episodes take this many query segments (its
-# backbones' float32 forwards on the host's CPU: 0.02 to 0.05 TFLOP a
-# segment; WRN-28-10's ≈ 0.2, so fewer)
-SLICE12_CPU_QUERIES = 16
+# the card-vs-CPU episodes of the heavy backbones take this many query
+# segments (phase 22, and phases 15, 20 and 21's resnet12-family cells; 64
+# before phases 23-24 were added): their float32 forwards on the host's CPU
+# take 0.02 to 0.05 TFLOP a segment (WRN-28-10's ≈ 0.2, so fewer)
+CPU_QUERIES = 16
 WRN_CPU_QUERIES = 8
 # resnet18Bdc's BDC pool: the [512, 8, 10] map of a [1, 128, 157] segment
 M_RESNET18_BDC = 8 * 10
 BDC18_TRAIN_SHAPE = (75, 64, M_RESNET18_BDC)
+
+# phase 23: swin_t's training epoch traces steps 2-3 (``profile_start`` 2)
+SWIN_PROFILE_STEPS = 2
+# phase 24: the synthetic audio roots (5 classes x 16 clips: a 5-way 5-shot
+# 10-query episode takes 15 a class), the extraction CLI's batch, and the
+# clips of its float32 card-vs-CPU check
+CLAP_CLASSES, CLAP_CLIPS = 5, 16
+CLAP_CLI_BATCH = 8
+CLAP_CPU_CLIPS = 8
 
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
@@ -766,15 +793,11 @@ def resnet12_phases(g: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     for head in RESNET12_HEADS:
         t0 = time.time()
-        cut = KENDALL_EVAL_CUT if head == "MetaBaselineKendall" else RESNET_EVAL_CUT
-        hcfg = slice_config(classifier=head, **cut)
+        hcfg = slice_config(classifier=head, **RESNET_EVAL_CUT)
         eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
-        note = (" (Kendall's own cut: its exact pair count takes seconds a step, so "
-                f"{cut['test_epoch']} epoch(s) of {cut['test_episode']} episodes)"
-                if cut is KENDALL_EVAL_CUT else "")
         print(f"[resnet12-eval] {hcfg['tag']} at full width ({RESNET12_MAPS[head]}), bf16 "
               f"backbone, fp32 head, {hcfg['test_episode_size']} episodes a step, "
-              f"{hcfg['test_epoch']} epochs of {hcfg['test_episode']} test episodes{note}: "
+              f"{hcfg['test_epoch']} epochs of {hcfg['test_episode']} test episodes: "
               f"accuracy {acc:.3f}, eval eps/s by epoch {[round(r, 2) for r in eps]}, "
               f"{ms:.1f} ms a step, peak memory {peak_gib:.2f} GiB, BDC launches "
               f"{bdc_launches} (expected 0)")
@@ -782,8 +805,8 @@ def resnet12_phases(g: int) -> None:
             raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {bdc_launches}")
         torch.cuda.empty_cache()
         torch.backends.cudnn.allow_tf32 = False
-        gh = KENDALL_CPU_QUERIES if head == "MetaBaselineKendall" else g
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), gh)
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
+                                        CPU_QUERIES)
         print(f"[resnet12-eval] {head} fp32 segment logits {shape}: card vs CPU "
               f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
               f"{agree:.4f}; {time.time() - t0:.1f} s for the head")
@@ -1156,7 +1179,8 @@ def slice10_cell(head: str, g: int, label: str = "slice10", what: str = None) ->
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), g)
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
+                                        g if conv else CPU_QUERIES)
         loss_gpu, loss_cpu, loss_rel = flat_loss_card_vs_cpu(head)
     print(f"[{label}-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
@@ -1249,7 +1273,7 @@ def slice10_phase(g: int) -> tuple:
     scfg["classifier"]["kwargs"]["val_type"] = "stl"
     torch.backends.cudnn.allow_tf32 = False
     with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(scfg, g)
+        rel, agree, shape = card_vs_cpu(scfg, CPU_QUERIES)
     print(f"[slice10] DeepBDC_Pretrain with val_type: stl (NO shipped config; the probe at "
           f"penalty_C 0.1): fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
@@ -1263,7 +1287,7 @@ def slice10_phase(g: int) -> tuple:
     return forward, backward
 
 
-def renet_cells(g: int) -> None:
+def renet_cells() -> None:
     """Phase 21's RENet cells: eval through ``Test`` at phase 15's cut, one
     float32 episode card vs CPU, one episodic training epoch at phase 13's
     cut, and the same epoch with the dual loader (``RENet:dual``:
@@ -1292,7 +1316,8 @@ def renet_cells(g: int) -> None:
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier="RENet", precision="fp32"), g)
+        rel, agree, shape = card_vs_cpu(slice_config(classifier="RENet", precision="fp32"),
+                                        CPU_QUERIES)
     print(f"[slice11-eval] RENet fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
           f"agreement {agree:.4f}", flush=True)
@@ -1332,7 +1357,7 @@ def renet_cells(g: int) -> None:
     print(f"[slice11] RENet: {time.time() - t0:.1f} s", flush=True)
 
 
-def one_step_cell(head: str, g: int) -> None:
+def one_step_cell(head: str) -> None:
     """A head with no shipped config: one eval step through ``Test``
     (``ONE_STEP_CUT``; BDC launches 0) and one float32 episode card vs
     CPU."""
@@ -1353,9 +1378,9 @@ def one_step_cell(head: str, g: int) -> None:
         raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {launches}")
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
-    gh = KENDALL_CPU_QUERIES if head == "MetabaselineKendallPretrain" else g
     with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"), gh)
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
+                                        CPU_QUERIES)
     print(f"[slice11-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}; "
           f"{time.time() - t0:.1f} s", flush=True)
@@ -1371,13 +1396,13 @@ def slice11_phase(g: int) -> None:
     import torch
 
     t_phase = time.time()
-    renet_cells(g)
+    renet_cells()
     for head in ("FRN_Pretrain", "S2M2"):
         (ef, eb), (tf, tb, *_), _ = slice10_cell(head, g, "slice11", SLICE11_FEATURES[head])
         if any((ef, eb, tf, tb)):
             raise AssertionError(f"{head}: BDC launches in phase 21")
     for head in ("MTLPretrain", "MetabaselineKendallPretrain"):
-        one_step_cell(head, g)
+        one_step_cell(head)
     torch.cuda.empty_cache()
     print(f"[slice11] phase 21 wall {time.time() - t_phase:.1f} s; BDC launches 0 in every "
           f"cell", flush=True)
@@ -1396,7 +1421,7 @@ def bdc_backbone_calls(cfg) -> int:
 def slice12_cell(cell: str) -> tuple:
     """Phase 22's cell of a backbone swapped into a shipped head: eval through
     ``Test`` at phase 15's cut (at the cell's own episodes a step), one
-    float32 episode card vs CPU (``SLICE12_CPU_QUERIES`` query segments,
+    float32 episode card vs CPU (``CPU_QUERIES`` query segments,
     WRN's ``WRN_CPU_QUERIES``; MTL at ``MTL_CARD_ITER`` inner steps), one
     training epoch at phase 13's
     cut.  BDC launches: DeepBDC's a backbone call each (the backward one a
@@ -1430,7 +1455,7 @@ def slice12_cell(cell: str) -> tuple:
         note = f"; at {MTL_CARD_ITER} inner steps, NOT the shipped 100 (chaotic in float32)"
     with cudnn_deterministic():
         rel, agree, shape = card_vs_cpu(ccfg, WRN_CPU_QUERIES if cell.endswith("WRN") else
-                                        SLICE12_CPU_QUERIES)
+                                        CPU_QUERIES)
     print(f"[slice12-eval] {cell} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms{note}), "
           f"argmax agreement {agree:.4f}", flush=True)
@@ -1560,7 +1585,7 @@ def slice12_phase() -> tuple:
     """Phase 22: every cell of ``SLICE12_CELLS`` through ``slice12_cell``,
     S2M2 on resnet18 through ``slice10_cell`` (flat training; no BDC
     launch), and ``ifsl_cycle``, each card-vs-CPU episode at
-    ``SLICE12_CPU_QUERIES`` query segments (WRN's fewer).  Returns
+    ``CPU_QUERIES`` query segments (WRN's fewer).  Returns
     resnet18Bdc's BDC launches (forward, backward)."""
     import torch
 
@@ -1570,15 +1595,286 @@ def slice12_phase() -> tuple:
         f, b = slice12_cell(cell)
         forward, backward = forward + f, backward + b
     for cell, what in SLICE12_FLAT.items():
-        (ef, eb), (tf, tb, *_), _ = slice10_cell(cell, SLICE12_CPU_QUERIES, "slice12", what)
+        (ef, eb), (tf, tb, *_), _ = slice10_cell(cell, CPU_QUERIES, "slice12", what)
         if any((ef, eb, tf, tb)):
             raise AssertionError(f"{cell}: BDC launches in phase 22")
-    ifsl_cycle(SLICE12_CPU_QUERIES)
+    ifsl_cycle(CPU_QUERIES)
     torch.cuda.empty_cache()
     print(f"[slice12] phase 22 wall {time.time() - t_phase:.1f} s; resnet18Bdc's BDC launches: "
           f"forward {forward}, backward {backward}", flush=True)
     print(flush=True)
     return forward, backward
+
+
+def swin_phase() -> None:
+    """Phase 23: ProtoNet on swin_t at full width (NOT shipped traffic):
+    eval through ``Test`` at phase 15's cut with ``dump_features`` (one
+    ``featdata_*.npz`` per episode of the first test batch, way · (shot +
+    query) rows of 768), one float32 episode card vs CPU, one training epoch
+    at phase 13's cut with ``profile_steps`` (its Chrome trace read back);
+    swin_mini one float32 episode card vs CPU.  BDC launches 0."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import Test, slice_config
+    from audio_fewshot_tpu_torch.models import build_method
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+    from audio_fewshot_tpu_torch.utils.checkpoint import save_model_best
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell = "ProtoNet:swin_t"
+    hcfg = slice_config(classifier=cell, **RESNET_EVAL_CUT)
+    hcfg["dump_features"] = True
+    with tempfile.TemporaryDirectory() as result_path:
+        init_seed(int(hcfg["seed"]))
+        save_model_best(result_path, build_method(hcfg))
+        torch.cuda.reset_peak_memory_stats()
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        test = Test(0, hcfg, result_path, device="cuda")
+        acc, _ = test.test_loop()
+        torch.cuda.synchronize()
+        launches = (bdc_cuda.launches, bdc_cuda.backward_launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = 5 * (5 + 10)
+        width = test.method.emb_func.feature_dim(tuple(hcfg["spec_shape"]))
+        dumps = []
+        for path in sorted(test.feature_dumps):
+            with np.load(path) as z:
+                dumps.append((z["raw_features"].shape, bool(np.isfinite(z["raw_features"]).all()),
+                              "features_2d" in z.files))
+    eps = test.epoch_eps
+    ms = 1e3 * hcfg["test_episode_size"] * len(eps) / sum(eps)
+    print(f"[swin-eval] {hcfg['tag']} at full width (swin_t: stages 32x39, 16x19, 8x9, 4x4 at "
+          f"windows 7, 7, 7, 4; 768 mean features), bf16 backbone, fp32 head, "
+          f"{hcfg['test_episode_size']} episodes a step, {hcfg['test_epoch']} epoch of "
+          f"{hcfg['test_episode']} test episodes: accuracy {acc:.3f}, eval eps/s "
+          f"{[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory {peak_gib:.2f} GiB, "
+          f"BDC launches {launches} (expected (0, 0))", flush=True)
+    print(f"[swin-eval] dump_features: {len(dumps)} featdata npz (expected "
+          f"{hcfg['test_episode_size']}, one an episode of the first test batch), raw_features "
+          f"{sorted({d[0] for d in dumps})} (expected ({rows}, {width})), finite "
+          f"{all(d[1] for d in dumps)}, features_2d written {sorted({d[2] for d in dumps})} "
+          f"(only where sklearn imports)", flush=True)
+    if not (math.isfinite(acc) and not any(launches) and len(dumps) == hcfg["test_episode_size"]
+            and all(d[0] == (rows, width) and d[1] for d in dumps)):
+        raise AssertionError(f"swin_t eval: accuracy {acc}, BDC launches {launches}, "
+                             f"dumps {dumps}")
+    del test
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    for name in (cell, "ProtoNet:swin_mini"):
+        with cudnn_deterministic():
+            rel, agree, shape = card_vs_cpu(slice_config(classifier=name, precision="fp32"),
+                                            CPU_QUERIES)
+        print(f"[swin-eval] {name} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
+              f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}",
+              flush=True)
+        if not rel <= LOGIT_REL_LIMIT:
+            raise AssertionError(f"float32 {name} card logits disagree with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as result_root:
+        tcfg = train.slice_config(result_root, classifier=cell, **HEAD_TRAIN_CUT)
+        tcfg["profile_steps"] = SWIN_PROFILE_STEPS
+        rows_, peak_gib, launches = run_trainer(tcfg)
+        traces = glob.glob(os.path.join(result_root, "*", "log_files", "profile", "*.json"))
+        kernels = 0
+        for trace in traces:
+            with open(trace) as f:
+                kernels += sum(e.get("cat") == "kernel" for e in json.load(f)["traceEvents"])
+        sizes = [os.path.getsize(t) for t in traces]
+    for r in rows_:
+        print(f"[swin-train] {tcfg['tag']} at full width, bf16, augment on, one episode a step, "
+              f"epoch {r['epoch']} of {r['train_eps_count']} steps (steps 2-3 under "
+              f"torch.profiler): {r['train_eps']:.2f} train eps/s, step {r['step_ms']:.1f} ms, "
+              f"loss {r['train_losses'][0]:.4f} -> {r['train_losses'][-1]:.4f}, val acc "
+              f"{r['val_acc']:.3f}, test acc {r['test_acc']:.3f}; peak memory "
+              f"{peak_gib:.2f} GiB; BDC launches {launches} (expected (0, 0))", flush=True)
+    print(f"[swin-train] profile_steps {SWIN_PROFILE_STEPS}: {len(traces)} Chrome trace(s) "
+          f"({[os.path.basename(t) for t in traces]}, {sizes} bytes) with {kernels} CUDA "
+          f"kernel events", flush=True)
+    if any(launches) or len(traces) != 1 or not kernels:
+        raise AssertionError(f"swin_t training: BDC launches {launches}, traces {traces}, "
+                             f"kernel events {kernels}")
+    torch.cuda.empty_cache()
+    print(f"[swin] phase 23 wall {time.time() - t_phase:.1f} s; BDC launches 0", flush=True)
+    print(flush=True)
+
+
+def audio_root(root: str, classes: int, clips: int, seed: int, samples=None) -> str:
+    """A root of ``classes`` x ``clips`` waveforms made from ``seed``: a
+    sine at a class frequency in noise.  With ``samples``: 1-D float32
+    ``.npy`` clips of that length at 48 kHz; else 2 to 4 s clips, wav (PCM
+    int16 at 16, 22.05 or 48 kHz) and ``.npy`` (float32 at 48 kHz) in turn."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        cdir = os.path.join(root, f"class_{c:02d}")
+        os.makedirs(cdir)
+        for k in range(clips):
+            rate = 48000 if samples or k % 2 else (16000, 22050, 48000)[k // 2 % 3]
+            n = samples or int(rng.uniform(2.0, 4.0) * rate)
+            t = np.arange(n) / rate
+            x = (0.3 * np.sin(2 * np.pi * (220.0 * (c + 1)) * t)
+                 + 0.1 * rng.normal(size=n)).astype(np.float32)
+            if samples or k % 2:
+                np.save(os.path.join(cdir, f"clip_{k:02d}.npy"), x)
+            else:
+                with wave.open(os.path.join(cdir, f"clip_{k:02d}.wav"), "wb") as w:
+                    w.setnchannels(1)
+                    w.setsampwidth(2)
+                    w.setframerate(rate)
+                    w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return root
+
+
+def clap_phase() -> None:
+    """Phase 24: the CLAP path on the card, NOT shipped traffic.  (a) the
+    extraction CLI on a root of wav and npy clips with the full-width
+    random-init HTSAT-tiny (10 s windows at 48 kHz): clips/s, peak memory,
+    unit norms, eight clips' float32 embeddings card vs CPU; (b) ProtoNet on
+    ``CLAPEmbeddingBackbone`` over them, one eval epoch; (c) ProtoNet with
+    ``is_clap`` on a root of 1-D waveforms of 480 000 samples, one eval epoch
+    at phase 15's cut and one training epoch at phase 13's; (d) the encoder
+    saved with ``save_params`` and trained one step through ``Trainer``
+    from its ``checkpoint_path``, the loaded weights held equal to the saved
+    ones.  BDC launches 0."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from audio_fewshot_tpu_torch import extract_clap_embeddings as cli
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.models.backbones.clap_encoder import (
+        CLAPAudioEncoder, fit_waveform, resample_linear, save_params)
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    t_phase = time.time()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        # -- (a) the extraction CLI ---------------------------------------------------------
+        audio = audio_root(os.path.join(root, "audio"), CLAP_CLASSES, CLAP_CLIPS, seed=0)
+        emb_root = os.path.join(root, "embeddings")
+        stats = cli.main(["--audio_root", audio, "--out", emb_root, "--allow-random-init",
+                          "--batch", str(CLAP_CLI_BATCH)])
+        files = sorted(glob.glob(os.path.join(emb_root, "*", "*.npy")))
+        embs = np.stack([np.load(f) for f in files])
+        norms = np.linalg.norm(embs, axis=-1)
+        print(f"[clap-a] extract_clap_embeddings on the card: {stats['clips']} clips (wav int16 "
+              f"at 16 / 22.05 / 48 kHz and npy at 48 kHz, 2-4 s, tiled to 10 s at 48 kHz), "
+              f"HTSAT-tiny at full width (random init, seed 0; bf16 body), batches of "
+              f"{CLAP_CLI_BATCH}: {stats['clips'] / stats['seconds']:.2f} clips/s over "
+              f"{stats['seconds']:.1f} s (host reads and resamples included), peak memory "
+              f"{stats['peak_gib']:.2f} GiB; {len(files)} files {embs.shape[1:]} float32, "
+              f"norms {norms.min():.6f} .. {norms.max():.6f} (limit 1 ± 1e-3)", flush=True)
+        if not (len(files) == stats["clips"] == CLAP_CLASSES * CLAP_CLIPS
+                and embs.shape[1:] == (512,) and np.abs(norms - 1).max() <= 1e-3):
+            raise AssertionError(f"extraction: {len(files)} files, shape {embs.shape}, norms "
+                                 f"{norms.min()} .. {norms.max()}")
+        waves = []
+        for f in sorted(os.listdir(os.path.join(audio, "class_00")))[:CLAP_CPU_CLIPS]:
+            path = os.path.join(audio, "class_00", f)
+            x, sr = cli.read_wav(path) if f.endswith(".wav") else (np.load(path), 48000)
+            waves.append(fit_waveform(resample_linear(x, sr)))
+        waves = torch.from_numpy(np.stack(waves))
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        init_seed(0)
+        enc_cpu = CLAPAudioEncoder(dtype=torch.float32).eval()
+        enc_gpu = copy.deepcopy(enc_cpu).to("cuda")
+        with torch.no_grad():
+            on_gpu = enc_gpu(waves.to("cuda")).cpu()
+            on_cpu = enc_cpu(waves)
+        rel = ((on_gpu - on_cpu).abs().max() / on_cpu.abs().max()).item()
+        bf16_gap = np.abs(on_gpu.numpy() - embs[:CLAP_CPU_CLIPS]).max()
+        print(f"[clap-a] {CLAP_CPU_CLIPS} clips' float32 embeddings {tuple(on_gpu.shape)}: card "
+              f"vs CPU max|Δ|/max|emb| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}); the CLI's bf16 "
+              f"body {bf16_gap:.3e} from the float32 card (not a limit)", flush=True)
+        if not (torch.isfinite(on_gpu).all() and rel <= LOGIT_REL_LIMIT):
+            raise AssertionError("float32 CLAP embeddings disagree on the card and the CPU")
+        del enc_gpu, enc_cpu
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+
+        # -- (b) ProtoNet on the extracted embeddings ----------------------------------------
+        bcfg = slice_config(classifier="ProtoNet:CLAPEmbeddingBackbone", **RESNET_EVAL_CUT)
+        bcfg["data_root"] = emb_root
+        eps, ms, peak_gib, acc, launches = run_test(bcfg)
+        print(f"[clap-b] {bcfg['tag']} over the {len(files)} embeddings ({CLAP_CLASSES} classes "
+              f"in every split), {bcfg['test_episode_size']} episodes a step, one epoch of "
+              f"{bcfg['test_episode']}: accuracy {acc:.3f}, eval eps/s "
+              f"{[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory {peak_gib:.2f} "
+              f"GiB, BDC launches {launches} (expected (0, 0))", flush=True)
+        if not math.isfinite(acc) or any(launches):
+            raise AssertionError(f"ProtoNet on CLAP embeddings: accuracy {acc}, BDC {launches}")
+
+        # -- (c) is_clap on 1-D waveforms ----------------------------------------------------
+        wave_root = audio_root(os.path.join(root, "waves"), CLAP_CLASSES, CLAP_CLIPS, seed=1,
+                               samples=480_000)
+        ccfg = slice_config(classifier="ProtoNet:is_clap", **RESNET_EVAL_CUT)
+        ccfg["data_root"] = wave_root
+        eps, ms, peak_gib, acc, launches = run_test(ccfg)
+        print(f"[clap-c] {ccfg['tag']} (the random-init HTSAT-tiny in place of Conv64F; bf16 "
+              f"body) on {CLAP_CLASSES} x {CLAP_CLIPS} 1-D waveforms of 480000 samples, "
+              f"{ccfg['test_episode_size']} episodes a step, one epoch of "
+              f"{ccfg['test_episode']}: accuracy {acc:.3f}, eval eps/s "
+              f"{[round(r, 2) for r in eps]}, {ms:.1f} ms a step, peak memory {peak_gib:.2f} "
+              f"GiB, BDC launches {launches} (expected (0, 0))", flush=True)
+        if not math.isfinite(acc) or any(launches):
+            raise AssertionError(f"is_clap eval: accuracy {acc}, BDC launches {launches}")
+        torch.cuda.empty_cache()
+        tcfg = train.slice_config(os.path.join(root, "results"), classifier="ProtoNet:is_clap",
+                                  **HEAD_TRAIN_CUT)
+        # waveforms: no spectrogram augmentation or statistics, and every
+        # class of the root in every split (no KOS split file)
+        tcfg.update(data_root=wave_root, augment=False, mean_std_file=None,
+                    class_per_split=None)
+        rows, peak_gib, launches = run_trainer(tcfg)
+        for r in rows:
+            print(f"[clap-c] {tcfg['tag']} training, bf16 body, one episode a step (75 "
+                  f"waveforms), epoch {r['epoch']} of {r['train_eps_count']} steps: "
+                  f"{r['train_eps']:.2f} train eps/s, step {r['step_ms']:.1f} ms, loss "
+                  f"{r['train_losses'][0]:.4f} -> {r['train_losses'][-1]:.4f}, val acc "
+                  f"{r['val_acc']:.3f}, test acc {r['test_acc']:.3f}; peak memory "
+                  f"{peak_gib:.2f} GiB; BDC launches {launches} (expected (0, 0))", flush=True)
+        if any(launches):
+            raise AssertionError(f"is_clap training: BDC launches {launches}")
+        torch.cuda.empty_cache()
+
+        # -- (d) checkpoint_path -----------------------------------------------------------
+        init_seed(1)
+        saved = CLAPAudioEncoder()
+        ckpt = os.path.join(root, "clap.npz")
+        save_params(ckpt, saved)
+        dcfg = copy.deepcopy(tcfg)
+        dcfg["backbone"]["kwargs"]["checkpoint_path"] = ckpt
+        dcfg.update(result_root=os.path.join(root, "results_ckpt"), train_episode=1,
+                    test_episode=16, test_episode_size=16)
+        trainer = train.Trainer(0, dcfg, device="cuda")
+        own = trainer.method.emb_func.state_dict()
+        same = set(own) == set(saved.state_dict()) and all(
+            torch.equal(own[k].cpu(), v) for k, v in saved.state_dict().items())
+        trainer.train_loop()
+        loss = trainer.history[0]["train_losses"]
+        print(f"[clap-d] save_params -> {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB npz -> "
+              f"Trainer with backbone.kwargs.checkpoint_path: loaded weights equal the saved "
+              f"ones {same}; one train step, loss {loss}", flush=True)
+        if not (same and len(loss) == 1 and math.isfinite(loss[0])):
+            raise AssertionError("the CLAP checkpoint did not load, or its train step failed")
+        del trainer
+    torch.cuda.empty_cache()
+    print(f"[clap] phase 24 wall {time.time() - t_phase:.1f} s; BDC launches 0", flush=True)
+    print(flush=True)
 
 
 def main() -> int:
@@ -2120,6 +2416,8 @@ def main() -> int:
     pre_forward, pre_backward = slice10_phase(g)
     slice11_phase(g)
     r18_forward, r18_backward = slice12_phase()
+    swin_phase()
+    clap_phase()
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[(b_main, m_main)]

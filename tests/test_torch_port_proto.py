@@ -250,11 +250,19 @@ def test_train_step_matches_jax(is_flatten, no_dropout):
 
 def test_use_bpa_and_is_clap_raise():
     """``use_bpa`` builds since BPA is ported (``test_torch_port_bpa.py``
-    holds it against the JAX package); ``is_clap`` still raises."""
+    holds it against the JAX package); ``is_clap`` builds since the CLAP
+    encoder is ported (``test_torch_port_clap.py``): the encoder in place of
+    Conv64F, and, as in the JAX package, the encoder's guard raises without
+    ``checkpoint_path`` or ``allow_random_init``."""
+    from audio_fewshot_tpu_torch.models.backbones.clap_encoder import CLAPAudioEncoder
+
     assert build_method(proto_config(classifier={"name": "ProtoNet",
                                                  "kwargs": {"use_bpa": True}})).use_bpa
-    with pytest.raises(NotImplementedError, match="the CLAP encoder"):
+    with pytest.raises(ValueError, match="checkpoint_path"):
         build_method(proto_config(is_clap=True))
+    cfg = proto_config(is_clap=True)
+    cfg["backbone"]["kwargs"]["allow_random_init"] = True
+    assert isinstance(build_method(cfg).emb_func, CLAPAudioEncoder)
 
 
 # -- evaluation ---------------------------------------------------------------------

@@ -12,6 +12,7 @@ first steps and its update on given gradients).  With SGD the two
 trajectories stay within float32 noise: the losses agree to 3e-6 (measured)
 and are held at 1e-4."""
 
+import json
 import os
 
 import numpy as np
@@ -163,17 +164,30 @@ def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("over, error, match", [
-    ({"profile_steps": 2}, NotImplementedError, "profile_steps"),
+    ({"profile_steps": 2, "profile_start": 1}, None, None),
     ({"classifier": {"name": "IfslPretrain", "kwargs": {
         "num_class": 10, "ifsl_pretrain_param": {"featuring": True}}}},
      ValueError, "feature_path"),
 ], ids=["profile_steps", "featuring"])
 def test_unported_training_features_raise(tmp_path, over, error, match):
-    """``profile_steps`` is not ported; IFSL's featuring pass is
-    (``test_torch_port_ifsl_cycle.py``), and refuses to run without its
+    """Two features ported late.  ``profile_steps`` runs: train steps 1-2 of
+    epoch 0 traced by ``torch.profiler`` into one Chrome trace under
+    ``<log_dir>/profile/``, no trace of epoch 1.  IFSL's featuring pass
+    (``test_torch_port_ifsl_cycle.py``) refuses to run without its
     ``feature_path``."""
-    with pytest.raises(error, match=match):
-        Trainer(0, trainer_config(tmp_path, train_episode=1, **over), device="cpu").train_loop()
+    if error is not None:
+        with pytest.raises(error, match=match):
+            Trainer(0, trainer_config(tmp_path, train_episode=1, **over),
+                    device="cpu").train_loop()
+        return
+    trainer = Trainer(0, trainer_config(tmp_path, train_episode=4, **over), device="cpu")
+    trainer.train_loop()
+    traces = os.listdir(os.path.join(trainer.log_dir, "profile"))
+    assert traces == ["train_steps_1-3.json"]
+    with open(os.path.join(trainer.log_dir, "profile", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in str(e.get("name", "")) for e in events)
+    assert len(trainer.history) == 2 and all(len(r["train_losses"]) == 4 for r in trainer.history)
 
 
 def test_resnet12bdc_trains_with_dropblock(tmp_path):
