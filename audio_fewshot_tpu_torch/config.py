@@ -45,9 +45,12 @@ DEFAULTS: Dict[str, Any] = {
     "device_data_bank": "auto",
     "device_data_bank_max_gb": 4.0,
     # device
+    # the ranks of a run (parallel/mesh.py): one process a card, started by
+    # torchrun or an entry point's --nproc; n_devices (or n_gpu > 1) must
+    # equal the world size, and device_ids (a comma list) picks the cards
     "device_ids": 0,
-    "n_gpu": 1,  # kept for config parity; maps to number of devices used
-    "n_devices": None,  # multi-device count of the JAX package; the port uses one
+    "n_gpu": 1,
+    "n_devices": None,
     "seed": 0,
     "deterministic": True,
     "port": None,
@@ -242,11 +245,15 @@ class Config:
                 "tb_scale", float(config["train_episode"]) / float(config["test_episode"])
             )
         # episode divisibility sanity checks (reference trainer.py:724-754)
-        n_dev = config.get("n_devices") or config.get("n_gpu") or 1
-        if int(n_dev) > 1 and config["episode_size"] % int(n_dev) != 0:
+        # at the world size the config asks for; the launched world's size
+        # is checked against the knob its loop reads (episode_size in
+        # training, test_episode_size in a test: eval.world_for)
+        n_dev = int(config.get("n_devices") or config.get("n_gpu") or 1)
+        if n_dev > 1 and config["episode_size"] % n_dev != 0:
             raise ValueError(
                 f"episode_size ({config['episode_size']}) must be divisible by "
-                f"the device count ({n_dev})"
+                f"the world size ({n_dev} ranks: n_devices, --nproc or torchrun "
+                f"--nproc_per_node)"
             )
         # -- knob audit: every accepted key is consumed or rejected loudly --
         # use_memory (upstream LibFewShot: hold the dataset in RAM) → the
@@ -255,12 +262,13 @@ class Config:
         if config.get("use_memory") and config.get("device_data_bank") == "auto":
             config["device_data_bank"] = True
         # parallel_part (upstream: which submodules get nn.DataParallel) has
-        # no analogue: the port runs the whole model on one device
+        # no analogue: every rank holds the whole model and takes a shard of
+        # the episode axis (parallel/mesh.py)
         if list(config.get("parallel_part") or []) not in ([], ["emb_func"]):
             warnings.warn(
-                "parallel_part is accepted for config parity only: the whole "
-                "model runs on one device, there is no per-submodule "
-                "DataParallel split",
+                "parallel_part is accepted for config parity only: each rank "
+                "runs the whole model on its shard of the episode axis, there "
+                "is no per-submodule DataParallel split",
                 stacklevel=2,
             )
         # audio_size is consumed by nothing in the reference snapshot either

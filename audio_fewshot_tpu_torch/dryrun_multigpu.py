@@ -1,0 +1,476 @@
+"""Episode-parallel dry run over N ranks at tiny shapes (the port's
+counterpart of ``__graft_entry__.dryrun_multichip``): one sharded step each
+of ProtoNet/Conv64F training, a ragged ProtoNet eval with the majority
+vote, flagship DeepBDC/resnet12Bdc training, RENet's dual (episodic + flat)
+step, DeepBDC's energy-OOD TTA eval through ``Test``, a MAML outer step
+(``torch.autograd.grad`` in its inner loop) and CPEANet on a small
+VisionTransformer, run over N ranks and over one; every number the N-rank
+run gives must be the one-rank run's, up to the order of its float32
+sums (``mismatch``, ``COMPARED``).
+
+    python -m audio_fewshot_tpu_torch.dryrun_multigpu --nproc 2 [--device cpu]
+
+``--device cpu``: gloo ranks on the CPU; else one card a rank (NCCL), or
+``--backend gloo --device cuda:0`` for ranks that share one card.  It prints
+each scenario's ``mismatch`` against one rank and exits non-zero where the
+results are not within ``--rtol`` / ``--atol`` of it.  ``run_ranks`` is the
+same run from Python: the tests and ``chip_smoke.py`` call it with cells of
+their own (``SCENARIOS`` names the scenarios, and ``scenarios=`` adds a
+caller's; each takes ``(world, **inputs)`` and returns CPU tensors and
+numbers).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import datetime
+import os
+import sys
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .config import Config
+from .episode import (DualBatch, FlatBatch, make_dense_episode_batch,
+                      pack_ragged_episode_batch)
+from .eval import Test
+from .models import build_method, eval_setting, train_setting
+from .optim import build_optimizer
+from .parallel import World, gather_rows, get_mesh, shard_batch, sharded_rows
+from .parallel.launch import spawn
+from .train import sharded_train_step
+from .utils.checkpoint import save_model_best
+from .utils.seed import init_seed
+
+SPEC = (1, 24, 30)
+_CONV64F_MAP = {"name": "Conv64F", "kwargs": {"is_flatten": False, "last_pool": False,
+                                              "maxpool_last2": False, "num_channels": 1}}
+
+
+def proto_config(**over) -> Dict[str, Any]:
+    """The cell of the JAX package's mesh tests: ProtoNet on Conv64F's map,
+    float32, 3-way 2-shot 2-query, SGD at lr 0.05, 8 episodes a step."""
+    cfg = {"backbone": copy.deepcopy(_CONV64F_MAP),
+           "classifier": {"name": "ProtoNet", "kwargs": None},
+           "modality": "audio", "precision": "fp32", "way_num": 3, "shot_num": 2,
+           "query_num": 2, "augment_times": 1, "episode_size": 8, "seed": 0,
+           "spec_shape": list(SPEC),
+           "optimizer": {"name": "SGD", "kwargs": {"lr": 0.05}}}
+    cfg.update(over)
+    return Config(None, cfg).get_config_dict()
+
+
+def episode_batches(n_steps: int, episodes: int = 8, spec=SPEC, seed: int = 0,
+                    global_classes: int = 0) -> List[Any]:
+    """``n_steps`` dense 3-way 2-shot 2-query host batches of normal draws
+    (the JAX package's ``test_shard_equivalence._batches``); with
+    ``global_classes`` also dataset-level targets."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_steps):
+        sup = rng.normal(size=(episodes, 6) + tuple(spec)).astype(np.float32)
+        qry = rng.normal(size=(episodes, 6) + tuple(spec)).astype(np.float32)
+        gt = (rng.integers(0, global_classes, size=(episodes, 12)).astype(np.int32)
+              if global_classes else None)
+        out.append(make_dense_episode_batch(sup, qry, 3, 2, 2, global_target=gt))
+    return out
+
+
+def _method(cfg: Dict[str, Any], state: Optional[str], device: torch.device):
+    """The config's method (its seed's weights, or ``state``) on ``device``;
+    float32 means float32 (no TF32), and cuDNN as ``deterministic`` says,
+    as ``Trainer`` and ``Test`` set them."""
+    if cfg.get("precision", "bf16") == "fp32":
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    init_seed(int(cfg.get("seed", 0)), cfg.get("deterministic"))
+    method = build_method(cfg)
+    if state:
+        method.load_state_dict(torch.load(state, map_location="cpu"))
+    return method.to(device)
+
+
+def _cpu_state(method) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu().clone() for k, v in method.state_dict().items()}
+
+
+def _train(world: World, cfg: Dict[str, Any], batches: Sequence[Any], state: Optional[str],
+           eval_batch=None) -> Dict[str, Any]:
+    """``batches`` as train steps (each rank its shard): the losses, the
+    state after the first step and after the last, then the eval-mode
+    logits of ``eval_batch`` gathered over the ranks."""
+    method = _method(cfg, state, world.device).train()
+    optimizer = build_optimizer(cfg, method)
+    setting = train_setting(cfg)
+    losses, first = [], None
+    for b in batches:
+        losses.append(float(sharded_train_step(method, optimizer, shard_batch(b, world),
+                                               setting, world)["loss"]))
+        first = first or _cpu_state(method)
+    out = {"losses": losses, "first_state": first, "state": _cpu_state(method)}
+    if eval_batch is not None:
+        method.eval()
+        with torch.no_grad():
+            logits = method(shard_batch(eval_batch, world), eval_setting(cfg))
+        out["logits"] = gather_rows(logits, world).cpu()
+    return out
+
+
+# -- the scenarios ------------------------------------------------------------------------------
+
+def proto_train(world: World, state=None, steps: int = 3) -> Dict[str, Any]:
+    """ProtoNet/Conv64F: ``steps`` SGD steps, the losses, the parameters and
+    statistics after them, and the eval logits of the first batch."""
+    batches = episode_batches(steps)
+    return _train(world, proto_config(), batches, state, eval_batch=batches[0])
+
+
+def batchnorm(world: World) -> Dict[str, Any]:
+    """A ``BatchNorm`` in train mode over rows sharded across the ranks,
+    plain and masked: the output, the input's and the affine parameters'
+    gradients (of a fixed random cotangent) and the running statistics."""
+    from .models.backbones.layers import BatchNorm
+
+    rng = np.random.default_rng(3)
+    n = 8
+    x_all = rng.normal(1.5, 2.0, size=(n, 4, 5, 6))
+    cot_all = rng.normal(size=x_all.shape)
+    mask_all = np.array([1, 0, 1, 1, 1, 1, 0, 1], dtype=bool)
+    weight, bias = rng.normal(1.0, 0.2, size=4), rng.normal(0.0, 0.2, size=4)
+    rows = world.rows(n)
+    out: Dict[str, Any] = {}
+    for name, mask in (("plain", None), ("masked", mask_all)):
+        bn = BatchNorm(4).to(world.device).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(weight))
+            bn.bias.copy_(torch.from_numpy(bias))
+        x = torch.from_numpy(x_all[rows]).to(world.device, torch.float32).requires_grad_()
+        m = None if mask is None else torch.from_numpy(mask[rows]).to(world.device)
+        with sharded_rows():
+            y = bn(x, m)
+        (y * torch.from_numpy(cot_all[rows]).to(y)).sum().backward()
+        # each rank holds its rows' share of the affine gradients: sum them
+        affine = torch.cat([bn.weight.grad, bn.bias.grad])
+        if world.size > 1:
+            dist.all_reduce(affine)
+        out[name] = {"y": gather_rows(y.detach(), world).cpu(),
+                     "dx": gather_rows(x.grad, world).cpu(), "d_affine": affine.cpu(),
+                     "running_mean": bn.running_mean.cpu(), "running_var": bn.running_var.cpu()}
+    return out
+
+
+def ragged_eval(world: World, state=None) -> Dict[str, Any]:
+    """ProtoNet's eval of a ragged batch (clips of 1-2 segments, G = 16)
+    with the majority vote: the per-episode accuracies, in rank order."""
+    cfg = proto_config()
+    rng = np.random.default_rng(5)
+    e = 8
+    repeats = rng.integers(1, 3, size=(e * 6,))
+    sup = rng.normal(size=(e, 6) + SPEC).astype(np.float32)
+    segs = rng.normal(size=(int(repeats.sum()),) + SPEC).astype(np.float32)
+    batch = pack_ragged_episode_batch(sup, segs, repeats, 3, 2, 2, bucket_sizes=(16,))
+    method = _method(cfg, state, world.device).eval()
+    with torch.no_grad():
+        local = shard_batch(batch, world)
+        acc = method.eval_episode_accuracy(method(local, eval_setting(cfg)), local)
+    return {"episode_accs": gather_rows(acc, world).cpu()}
+
+
+def flagship_train(world: World, state=None, steps: int = 2) -> Dict[str, Any]:
+    """DeepBDC/resnet12Bdc (``reduce_dim`` 8) at [1, 24, 30], 8 episodes a
+    step: the losses and the parameters after ``steps`` steps."""
+    cfg = proto_config(
+        classifier={"name": "DeepBDC", "kwargs": None},
+        backbone={"name": "resnet12Bdc", "kwargs": {"num_channels": 1, "reduce_dim": 8}})
+    return _train(world, cfg, episode_batches(steps, seed=2), state)
+
+
+def renet_config(**over) -> Dict[str, Any]:
+    return proto_config(classifier={"name": "RENet", "kwargs": {"feat_dim": 64,
+                                                                "num_class": 6}},
+                        dataloader_num=2, batch_size=16, **over)
+
+
+def dual_batches(n_steps: int, seed: int = 1) -> List[Any]:
+    """RENet's dual steps: 8 episodes with dataset-level targets and a flat
+    batch of 16 (the JAX package's ``_renet_dual_batches``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_steps):
+        sup = rng.normal(size=(8, 6) + SPEC).astype(np.float32)
+        qry = rng.normal(size=(8, 6) + SPEC).astype(np.float32)
+        gt = rng.integers(0, 6, size=(8, 12)).astype(np.int32)
+        ep = make_dense_episode_batch(sup, qry, 3, 2, 2, global_target=gt)
+        flat = FlatBatch(data=rng.normal(size=(16,) + SPEC).astype(np.float32),
+                         target=rng.integers(0, 6, size=(16,)).astype(np.int32))
+        out.append(DualBatch(episode=ep, flat=flat))
+    return out
+
+
+def dual_train(world: World, state=None, steps: int = 2) -> Dict[str, Any]:
+    """RENet's dual step (``dataloader_num: 2``): both halves sharded, the
+    SCR and backbone statistics over every rank's rows, CCA per episode."""
+    return _train(world, renet_config(), dual_batches(steps), state)
+
+
+def maml_config(**over) -> Dict[str, Any]:
+    return proto_config(classifier={"name": "MAML", "kwargs": {
+        "inner_param": {"lr": 0.01, "train_iter": 2, "test_iter": 2}}}, **over)
+
+
+def maml_train(world: World, state=None, steps: int = 1) -> Dict[str, Any]:
+    """One MAML outer step: second-order inner loops of ``autograd.grad``
+    per episode, the outer gradients averaged over the ranks."""
+    return _train(world, maml_config(), episode_batches(steps), state)
+
+
+def cpea_config(**over) -> Dict[str, Any]:
+    return proto_config(
+        classifier={"name": "CPEANet", "kwargs": {"in_dim": 32}},
+        backbone={"name": "VisionTransformer", "kwargs": {
+            "patch_size": 8, "embed_dim": 32, "depth": 2, "num_heads": 2, "mlp_ratio": 2.0,
+            "num_channels": 1}}, spec_shape=[1, 24, 32], **over)
+
+
+def cpea_train(world: World, state=None, steps: int = 1) -> Dict[str, Any]:
+    """CPEANet on a depth-2 VisionTransformer at [1, 24, 32]."""
+    return _train(world, cpea_config(), episode_batches(steps, spec=(1, 24, 32)), state)
+
+
+#: the other heads ``MethodBase.shardable`` admits, on the cell's Conv64F map
+HEADS = {
+    "MetaBaseline": {"name": "MetaBaseline", "kwargs": None},
+    "R2D2": {"name": "R2D2", "kwargs": None},
+    "ANIL": {"name": "ANIL", "kwargs": {"inner_param": {"lr": 0.01, "train_iter": 2,
+                                                        "test_iter": 2}}},
+    "BOIL": {"name": "BOIL", "kwargs": {"inner_param": {"extractor_lr": 0.01,
+                                                        "classifier_lr": 0.01},
+                                        "testing_method": "NIL"}},
+}
+
+
+def head_step(world: World, head: str, steps: int = 2) -> Dict[str, Any]:
+    """``steps`` SGD steps of a head of ``HEADS`` on the cell: the losses
+    and the state after the first step."""
+    return _train(world, proto_config(classifier=copy.deepcopy(HEADS[head])),
+                  episode_batches(steps, seed=4), None)
+
+
+def tta_config(root: str = "synthetic:10:12", **over) -> Dict[str, Any]:
+    """A small DeepBDC eval with the energy-OOD TTA (``reduce_dim`` 8,
+    [1, 32, 40], 5-way 5-shot 3-query, ragged clips of up to 3 segments, 4
+    episodes a step)."""
+    cfg = {"classifier": {"name": "DeepBDC", "kwargs": None},
+           "backbone": {"name": "resnet12Bdc", "kwargs": {"num_channels": 1, "reduce_dim": 8}},
+           "data_root": root, "spec_shape": [1, 32, 40], "way_num": 5, "shot_num": 5,
+           "query_num": 3, "test_episode": 8, "test_episode_size": 4, "test_epoch": 1,
+           "max_segments_per_clip": 3, "segment_bucket_sizes": [48], "precision": "fp32",
+           "seed": 0, "prefetch": 0, "enhance_classification_via_energy": True,
+           "num_augmentations": 3}
+    cfg.update(over)
+    return Config(None, cfg).get_config_dict()
+
+
+def tta_eval(world: World, cfg=None, result_path: Optional[str] = None) -> Dict[str, Any]:
+    """DeepBDC's eval through ``Test`` with the TTA: the calibration
+    threshold, each step's flagged clips (the whole step's, on every rank)
+    and the per-episode accuracies."""
+    cfg = cfg or tta_config()
+    test = Test(0, copy.deepcopy(cfg), result_path, device=world.device)
+    flagged: List[torch.Tensor] = []
+    topk = test.method.ood_topk
+
+    def spy(uncertains):
+        idx = topk(uncertains)
+        flagged.append(idx.cpu())
+        return idx
+
+    test.method.ood_topk = spy
+    mean, ci = test.test_loop()
+    return {"threshold": test.method.uncertain_global_threshold, "flagged": flagged,
+            "episode_accs": test.episode_accs, "mean": mean, "ci": ci,
+            "eps": test.epoch_eps}
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def divisibility(world: World) -> Dict[str, Any]:
+    """The message of ``get_mesh`` when the world does not divide a knob."""
+    try:
+        get_mesh(None, {"episode_size": world.size + 1}, world.device)
+    except ValueError as err:
+        return {"message": str(err)}
+    return {"message": None}
+
+
+SCENARIOS: Dict[str, Callable[..., Dict[str, Any]]] = {
+    "proto_train": proto_train, "batchnorm": batchnorm, "ragged_eval": ragged_eval,
+    "flagship_train": flagship_train, "dual_train": dual_train, "tta_eval": tta_eval,
+    "maml_train": maml_train, "cpea_train": cpea_train, "divisibility": divisibility,
+    "head_step": head_step,
+}
+
+
+# -- running them -----------------------------------------------------------------------------
+
+def run_scenarios(world: World, plan: Dict[str, Dict[str, Any]],
+                  scenarios: Optional[Dict[str, Callable[..., Dict[str, Any]]]] = None
+                  ) -> Dict[str, Any]:
+    """``{name: inputs}`` → ``{name: result, name + ":s": seconds}``; a name
+    (up to a ``:``) is looked up in ``scenarios`` first, then in
+    ``SCENARIOS``."""
+    table = {**SCENARIOS, **(scenarios or {})}
+    out: Dict[str, Any] = {}
+    for name, inputs in plan.items():
+        t0 = time.time()
+        out[name] = table[name.partition(":")[0]](world, **(inputs or {}))
+        _synchronize(world.device)
+        out[name + ":s"] = time.time() - t0
+        if world.device.type == "cuda":  # ranks may share the card
+            torch.cuda.empty_cache()
+    return out
+
+
+def _rank(rank: int, init_method: str, backend: str, device: str,
+          plan: Dict[str, Dict[str, Any]], scenarios, out_dir: str, timeout: float) -> None:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev if dev.index is not None else torch.device("cuda", rank))
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=int(os.environ["WORLD_SIZE"]), rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        world = get_mesh(device=dev)
+        from .ops import bdc_cuda
+
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        result = run_scenarios(world, plan, scenarios)
+        result["launches"] = (bdc_cuda.launches, bdc_cuda.backward_launches)
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(nproc: int, plan: Dict[str, Dict[str, Any]], device: str = "cpu",
+              backend: Optional[str] = None, init_method: Optional[str] = None,
+              timeout: float = 600.0, threads: Optional[int] = None,
+              scenarios: Optional[Dict[str, Callable[..., Dict[str, Any]]]] = None
+              ) -> List[Dict[str, Any]]:
+    """``plan`` over ``nproc`` ranks (``backend``: gloo on the CPU, NCCL on
+    cards by default); each rank's results (rank 0 first).  ``scenarios``:
+    more scenario functions (module-level, so the ranks import them by
+    name).  The ranks' collectives and the whole run fail after
+    ``timeout`` seconds."""
+    backend = backend or ("gloo" if torch.device(device).type == "cpu" else "nccl")
+    with tempfile.TemporaryDirectory() as out_dir:
+        spawn(_rank, nproc, (backend, device, plan, scenarios, out_dir, timeout),
+              init_method=init_method, timeout=timeout, threads=threads)
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(nproc)]
+
+
+#: result keys that are times, not results
+TIMINGS = ("eps",)
+#: eval logits: ProtoNet's -|q - p|^2 = 2 q.p - |q|^2 - |p|^2 cancels, so 2
+#: ranks and one part by up to 4e-3 of logits near 50 (on the CPU and on
+#: the card alike); tests/test_torch_port_parallel.py's atol
+LOGITS_ATOL = 1e-2
+#: the keys held of the scenarios whose float32 gradients at random weights
+#: move by 1-3 % of a tensor's scale with the order of the sums alone (the
+#: BDC pool's, RENet's CCA: ROADMAP Queue C), which each later step
+#: compounds: their losses and the state after the first step, as the
+#: tests hold them; every other scenario's whole result
+COMPARED = {"flagship_train": ("losses", "first_state"),
+            "dual_train": ("losses", "first_state")}
+
+
+def mismatch(a: Any, b: Any, rtol: float = 1e-3, atol: float = 5e-4, key: str = "") -> float:
+    """How far two results (nested dicts, lists, tensors, numbers; times
+    left out) are apart: the largest |a − b| / (atol + rtol·|b|) over their
+    values (at most 1: ``allclose``; the JAX package's tolerances for
+    parameters after its mesh tests' steps by default; ``LOGITS_ATOL`` for
+    ``logits``); infinite where their structure differs.  The ``flagged``
+    clips of a TTA step are compared as sets: ``torch.topk`` lists them by
+    value, and near-equal values may swap places."""
+    if isinstance(b, dict):
+        return max((mismatch(a[k], b[k], rtol, atol, k) for k in b if k not in TIMINGS),
+                   default=0.0)
+    if isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return float("inf")
+        return max((mismatch(x, y, rtol, atol, key) for x, y in zip(a, b)), default=0.0)
+    if a is None or b is None or isinstance(b, str):
+        return 0.0 if a == b else float("inf")
+    ta, tb = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    if ta.shape != tb.shape:
+        return float("inf")
+    if ta.numel() == 0:
+        return 0.0
+    if key == "flagged":
+        ta, tb = ta.sort().values, tb.sort().values
+    if key == "logits":
+        atol = max(atol, LOGITS_ATOL)
+    return float(((ta - tb).abs() / (atol + rtol * tb.abs())).max())
+
+
+def compared(name: str, result: Dict[str, Any]) -> Dict[str, Any]:
+    """The part of scenario ``name``'s result that ``main`` holds."""
+    keys = COMPARED.get(name.partition(":")[0])
+    return result if keys is None else {k: result[k] for k in keys}
+
+
+def default_plan(root: str) -> Dict[str, Dict[str, Any]]:
+    """Every scenario at its tiny cell; the TTA eval over a random-weight
+    checkpoint saved under ``root``."""
+    cfg = tta_config()
+    init_seed(int(cfg["seed"]))
+    save_model_best(root, build_method(cfg))
+    return {"proto_train": {}, "batchnorm": {}, "ragged_eval": {}, "flagship_train": {},
+            "dual_train": {}, "tta_eval": {"cfg": cfg, "result_path": root},
+            "maml_train": {}, "cpea_train": {}}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--nproc", type=int, default=2)
+    parser.add_argument("--device", default="cuda",
+                        help="cpu (gloo), cuda (a card a rank) or cuda:0 (ranks share it)")
+    parser.add_argument("--backend", default=None, help="gloo or nccl (default by device)")
+    parser.add_argument("--rtol", type=float, default=1e-3)
+    parser.add_argument("--atol", type=float, default=5e-4)
+    args = parser.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print("dryrun_multigpu: no CUDA device is available; pass --device cpu",
+              file=sys.stderr)
+        return 1
+    with tempfile.TemporaryDirectory() as root:
+        plan = default_plan(root)
+        threads = (max(1, (os.cpu_count() or 1) // args.nproc)
+                   if torch.device(args.device).type == "cpu" else None)
+        many = run_ranks(args.nproc, plan, args.device, args.backend, threads=threads)
+        dev = torch.device(args.device)
+        one = run_scenarios(World(0, 1, dev if dev.type == "cpu" or dev.index is not None
+                                  else torch.device("cuda", 0)), plan)
+    worst = 0.0
+    for name in plan:
+        diff = mismatch(compared(name, many[0][name]), compared(name, one[name]), args.rtol,
+                        args.atol)
+        worst = max(worst, diff)
+        print(f"dryrun_multigpu({args.nproc}): {name}: max |Δ| / (atol + rtol·|one rank|) "
+              f"{diff:.3e}; {many[0][name + ':s']:.1f} s on {args.nproc} ranks, "
+              f"{one[name + ':s']:.1f} s on one")
+    ok = worst <= 1.0
+    print(f"dryrun_multigpu({args.nproc}): {'ok' if ok else 'FAILED'} (worst {worst:.3e}; "
+          f"rtol {args.rtol:g}, atol {args.atol:g})")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,8 +24,9 @@ import torch
 
 def _to_tensor(x: Any, device: torch.device, float_dtype=None) -> Any:
     """numpy / tensor leaf → tensor on ``device``.  Integer leaves become
-    int64 (torch's index type); float leaves float32, or ``float_dtype`` when
-    given (the wire dtype of a payload batch)."""
+    int64 (torch's index type), widened on ``device`` after the copy; float
+    leaves float32, or ``float_dtype`` when given (the wire dtype of a
+    payload batch), converted before the copy, so that fewer bytes cross."""
     if x is None:
         return None
     if isinstance(x, np.ndarray):
@@ -34,8 +35,8 @@ def _to_tensor(x: Any, device: torch.device, float_dtype=None) -> Any:
             x = x.copy()
         x = torch.from_numpy(x)
     if x.dtype.is_floating_point:
-        return x.to(device=device, dtype=float_dtype or torch.float32, non_blocking=True)
-    return x.to(device=device, dtype=torch.int64, non_blocking=True)
+        return x.to(dtype=float_dtype or torch.float32).to(device, non_blocking=True)
+    return x.to(device, non_blocking=True).to(torch.int64)
 
 
 @dataclass

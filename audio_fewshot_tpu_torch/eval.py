@@ -10,6 +10,17 @@ the energy-OOD TTA re-vote.  With ``dump_features`` (and a result dir) it
 first writes ``plots/featdata_*.npz`` for the first test batch
 (``utils.features``).  It runs on ``cuda`` unless ``device`` says
 otherwise, and raises when no card is there.
+
+Over several ranks (``torchrun``, or ``run_test --nproc``; see
+``parallel``) each rank evaluates its contiguous shard of every step's
+episodes, copied one step ahead (``parallel.transfer_ahead``).  The
+per-episode accuracies are gathered in rank order, so the CI is over the
+one-rank run's episodes in its order; the calibration pass gathers each
+step's uncertainties before its quantile, and the TTA gathers them before
+``ood_topk``, so the whole step's top 20 % is flagged and each rank re-votes
+its own flagged clips with the values the whole step's draw gives them.
+The host drains the accuracies every ``eval_queue_depth`` steps (0: every
+step; by default 32 with a segment bank, 4 without).
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from .config import Config
@@ -30,7 +42,9 @@ from .episode import EpisodeBatch, materialize_episode_batch
 from .models import build_method, eval_setting
 from .models.base import EpisodeSetting, MethodBase
 from .models.heads.proto_net import apply_bpa
-from .ops.audio_augmentations import batch_augment_spectrogram
+from .ops.audio_augmentations import batch_augment_spectrogram, draw_params, select_rows
+from .parallel import (World, gather_rows, get_mesh, maybe_init_distributed, replicate,
+                       shard_batch, transfer_ahead)
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.aggregate import clip_vote_counts
 from .utils.checkpoint import BEST, load_model
@@ -284,6 +298,21 @@ def resolve_tta_stats(cfg: Dict[str, Any], logger) -> Tuple[float, float]:
     )
 
 
+def world_for(config: Dict[str, Any], method: MethodBase, device: torch.device,
+              divisors: Dict[str, Any]) -> World:
+    """The run's ``World`` for ``method``: ``n_devices`` (or ``n_gpu`` > 1)
+    must equal the world size, which must divide each value of
+    ``divisors``; above one rank the method must be ``shardable``."""
+    n_dev = config.get("n_devices") or (
+        config["n_gpu"] if int(config.get("n_gpu", 1) or 1) > 1 else None)
+    size = dist.get_world_size() if dist.is_initialized() else 1
+    if size > 1 and not method.shardable:
+        raise ValueError(
+            f"{config['classifier']['name']} does not run over {size} ranks: its step has "
+            "not been audited for a sharded episode axis (MethodBase.shardable); run it on one")
+    return get_mesh(n_dev, divisors, device, config.get("device_ids"))
+
+
 def flagged_segments(batch: EpisodeBatch, ep_idx: torch.Tensor, clip_idx: torch.Tensor,
                      cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The valid query segments of each flagged clip (episode ``ep_idx[k]``,
@@ -299,7 +328,8 @@ def flagged_segments(batch: EpisodeBatch, ep_idx: torch.Tensor, clip_idx: torch.
 def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetting,
                   generator: torch.Generator, *, tta_mean: float, tta_std: float,
                   num_augmentations: int, tta_segments_per_clip: int, bank=None,
-                  augment: Optional[Callable] = None) -> torch.Tensor:
+                  augment: Optional[Callable] = None,
+                  world: Optional[World] = None) -> torch.Tensor:
     """Energy-OOD + TTA re-classification, per-episode accuracy ``[E]``.
 
     Flag the top-20 % most-uncertain query clips (``method.ood_topk``),
@@ -315,7 +345,14 @@ def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetti
     With the method's ``use_bpa`` the support and query are BPA-transformed
     for the base vote, and each flagged clip's augmented segments are
     transformed jointly with the raw support (the transformed support is not
-    reused: its width is that of the episode's own set)."""
+    reused: its width is that of the episode's own set).
+
+    ``world`` of several ranks: ``batch`` is this rank's shard of the step.
+    The uncertainties are gathered first, so the whole step's top 20 % is
+    flagged; the rank re-votes the flagged clips of its own episodes, each
+    with the noise-suppression values the whole step's draw gives it (the
+    clip's rows of a draw for every flagged clip), and returns its
+    episodes' accuracies."""
     if bank is not None:
         batch = materialize_episode_batch(batch, bank)
     sup_raw, qry_f = method.embed(batch)
@@ -328,31 +365,47 @@ def tta_eval_step(method: MethodBase, batch: EpisodeBatch, setting: EpisodeSetti
 
     wq = batch.num_query_clips
     uncertains, _ = method.clip_uncertainty(seg_logits, batch)
-    top_idx = method.ood_topk(uncertains)
-    k, m = top_idx.shape[0], num_augmentations
+    top_idx = method.ood_topk(gather_rows(uncertains, world))  # the whole step's flags
+    k_all, m = top_idx.shape[0], num_augmentations
     ep_idx, clip_idx = top_idx // wq, top_idx % wq
-    segments, seg_valid = flagged_segments(batch, ep_idx, clip_idx, tta_segments_per_clip)
-    s_cap = seg_valid.shape[1]
-    flat = segments.reshape((k * s_cap,) + segments.shape[2:])
-    aug = (batch_augment_spectrogram(flat, tta_mean, tta_std, m, "noise_suppression", generator)
-           if augment is None else augment(flat, tta_mean, tta_std, m, generator))  # [K*S*M, ...]
-    aug_f = method.embed_segments(aug).reshape(k, s_cap * m, -1)
-    # each flagged clip scores against its own episode's support set
-    if use_bpa:
-        # BPA features live in the affinity space of their own joint set:
-        # each flagged clip's augmented segments are transformed anew beside
-        # the raw support, the empty segment slots kept out of the transport
-        aug_mask = seg_valid.float().repeat_interleave(m, dim=1)  # [K, S*M]
-        sup_t, aug_t = apply_bpa(sup_raw[ep_idx], aug_f, aug_mask)
-        aug_logits = method.feature_logits(sup_t, aug_t, setting)
-    else:
-        aug_logits = method.feature_logits(sup_f[ep_idx], aug_f, setting)
-
+    positions = None  # of this rank's flagged clips in the whole step's order
+    if world is not None and world.size > 1:
+        first = world.rank * batch.num_episodes
+        positions = torch.nonzero((ep_idx >= first)
+                                  & (ep_idx < first + batch.num_episodes)).reshape(-1)
+        ep_idx, clip_idx = ep_idx[positions] - first, clip_idx[positions]
+    k = ep_idx.shape[0]
     votes = clip_vote_counts(seg_logits, batch.query_clip, batch.query_mask, wq)  # [E, Wq, way]
-    way = votes.shape[-1]
-    aug_pred = F.one_hot(aug_logits.argmax(dim=-1), way).float().reshape(k, s_cap, m, way)
-    aug_votes = (aug_pred * seg_valid[:, :, None, None].float()).sum(dim=(1, 2))  # [K, way]
-    votes = votes.index_put((ep_idx, clip_idx), aug_votes)
+    if k > 0:
+        segments, seg_valid = flagged_segments(batch, ep_idx, clip_idx, tta_segments_per_clip)
+        s_cap = seg_valid.shape[1]
+        flat = segments.reshape((k * s_cap,) + segments.shape[2:])
+        if augment is None:
+            params = draw_params("noise_suppression", k_all * s_cap * m, *flat.shape[-2:],
+                                 generator)
+            if positions is not None:  # each clip's S*M rows of the whole step's draw
+                rows = positions.cpu()[:, None] * (s_cap * m) + torch.arange(s_cap * m)
+                params = select_rows(params, rows.reshape(-1))
+            aug = batch_augment_spectrogram(flat, tta_mean, tta_std, m, "noise_suppression",
+                                            params=params)
+        else:
+            aug = augment(flat, tta_mean, tta_std, m, generator)  # [K*S*M, ...]
+        aug_f = method.embed_segments(aug).reshape(k, s_cap * m, -1)
+        # each flagged clip scores against its own episode's support set
+        if use_bpa:
+            # BPA features live in the affinity space of their own joint set:
+            # each flagged clip's augmented segments are transformed anew
+            # beside the raw support, the empty segment slots kept out of
+            # the transport
+            aug_mask = seg_valid.float().repeat_interleave(m, dim=1)  # [K, S*M]
+            sup_t, aug_t = apply_bpa(sup_raw[ep_idx], aug_f, aug_mask)
+            aug_logits = method.feature_logits(sup_t, aug_t, setting)
+        else:
+            aug_logits = method.feature_logits(sup_f[ep_idx], aug_f, setting)
+        way = votes.shape[-1]
+        aug_pred = F.one_hot(aug_logits.argmax(dim=-1), way).float().reshape(k, s_cap, m, way)
+        aug_votes = (aug_pred * seg_valid[:, :, None, None].float()).sum(dim=(1, 2))  # [K, way]
+        votes = votes.index_put((ep_idx, clip_idx), aug_votes)
     preds = votes.argmax(dim=-1)
     return (preds == batch.query_target).float().mean(dim=-1) * 100.0
 
@@ -368,7 +421,8 @@ class Test:
             # float32 means float32: cuDNN convolutions default to TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.rank = rank
+        maybe_init_distributed(config, self.device)
+        self.rank = dist.get_rank() if dist.is_initialized() else rank
         self.config = config
         self.result_path = result_path
         self.logger = init_logger(
@@ -377,9 +431,14 @@ class Test:
             file_name="{}-{}-test.log".format(
                 config["classifier"]["name"], config["backbone"]["name"]
             ),
+            rank=self.rank,
         )
-        init_seed(int(config.get("seed", 0)))  # the random init when no checkpoint
+        # the random init when no checkpoint
+        init_seed(int(config.get("seed", 0)), config.get("deterministic"))
         self.method: MethodBase = build_method(config)
+        self.world = world_for(config, self.method, self.device, {
+            "test_episode_size": config.get("test_episode_size") or config.get("episode_size", 1)})
+        self.device = self.world.device
         self.setting = eval_setting(config)
         modality = config.get("modality", "audio")
         # the val split feeds only the energy calibration pass
@@ -395,6 +454,8 @@ class Test:
         self.val_bank, self.test_bank = self._setup_segment_banks()
         #: episodes per second of each test epoch (host clock, synchronised)
         self.epoch_eps: List[float] = []
+        #: each test epoch's per-episode accuracies, in the one-rank order
+        self.episode_accs: List[List[float]] = []
         #: the ``featdata_*.npz`` files ``dump_features`` wrote
         self.feature_dumps: List[str] = []
         requested = bool(config.get("enhance_classification_via_energy", False))
@@ -420,6 +481,7 @@ class Test:
             self.logger.warning("no checkpoint found — evaluating at init")
         # evaluation only: no parameter needs grad, so no call builds a graph
         self.method.to(self.device).eval().requires_grad_(False)
+        replicate(self.method, self.world)
 
     def _setup_segment_banks(self):
         loaders = [self.test_loader[0]]
@@ -449,19 +511,22 @@ class Test:
             logger=self.logger)
 
     def _eval_step(self, host_batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Per-episode accuracy ``[E]`` (on the device) of one host batch;
-        with the energy-OOD TTA on, its re-vote with draws from
-        ``generator``."""
-        if self.test_bank is None:
-            batch = host_batch.to(self.device, self.transfer_dtype)
-        else:
-            batch = host_batch.to(self.device)
+        """Per-episode accuracy (on the device) of this rank's shard of one
+        host batch: ``_device_step``."""
+        return self._device_step(shard_batch(host_batch, self.world, self.transfer_dtype),
+                                 generator)
+
+    def _device_step(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Per-episode accuracy ``[E / W]`` (on the device) of this rank's
+        shard of a step, already on the device; with the energy-OOD TTA on,
+        its re-vote with draws from ``generator``."""
         if self.enhance_via_energy:
             return tta_eval_step(
                 self.method, batch, self.setting, generator,
                 tta_mean=self.tta_mean, tta_std=self.tta_std,
                 num_augmentations=self.num_augmentations,
-                tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank)
+                tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank,
+                world=self.world)
         if self.test_bank is not None:
             batch = materialize_episode_batch(batch, self.test_bank)
         seg_logits = self.method(batch, self.setting)
@@ -474,18 +539,18 @@ class Test:
         if getattr(self.method, "supports_energy_ood", False):
             self.logger.info("============ Calibration pass on the val set ============")
             dump = (os.path.join(self.result_path, "uncertainty_data.npz")
-                    if self.result_path else None)
+                    if self.result_path and self.world.is_main else None)
             th = self.method.calibrate_threshold(
                 self.val_loader[0], self.setting,
                 policy=str(cfg.get("uncertainty_policy", "mean")),
-                dump_path=dump, bank=self.val_bank,
+                dump_path=dump, bank=self.val_bank, world=self.world,
             )
             self.logger.info("uncertainty threshold: %s", th)
         if self.enhance_via_energy:
             self.tta_mean, self.tta_std = resolve_tta_stats(cfg, self.logger)
             self.logger.info("energy-OOD TTA enabled: %d augmentations, top %.0f%% flagged",
                              self.num_augmentations, 100 * self.method.ood_fraction)
-        if cfg.get("dump_features", False):
+        if cfg.get("dump_features", False) and self.world.is_main:
             self._dump_features()
         # the TTA's draws: one generator seeded seed + 7, split into a
         # generator of its own per step
@@ -504,14 +569,33 @@ class Test:
                             torch.Generator().manual_seed(0)).cpu()
             self.logger.info("eval step warmed in %.1fs", time.time() - t0)
 
+        # results stay on the device for ``depth`` steps: one host sync a
+        # window (0: every step); on the bank-less path each pending step
+        # keeps its payload alive, hence the smaller default
+        configured = cfg.get("eval_queue_depth")
+        depth = max(1, (32 if self.test_bank is not None else 4) if configured is None
+                    else int(configured))
         epoch_means: List[float] = []
         for epoch in range(n_epochs):
             t0 = time.time()
-            # results stay on the device until the epoch ends: one host sync
-            pending = [self._eval_step(b, step_generator())
-                       for b in self.test_loader[0].epoch(epoch)]
-            accs = torch.cat(pending).cpu().tolist() if pending else []
+            accs: List[float] = []
+            pending: List[torch.Tensor] = []
+
+            def drain():
+                # each step's episodes in rank order: the one-rank order
+                if pending:
+                    accs.extend(torch.cat([gather_rows(p, self.world) for p in pending])
+                                .cpu().tolist())
+                pending.clear()
+
+            for batch in transfer_ahead(self.test_loader[0].epoch(epoch), self.world,
+                                        self.transfer_dtype):
+                pending.append(self._device_step(batch, step_generator()))
+                if len(pending) >= depth:
+                    drain()
+            drain()
             dt = time.time() - t0
+            self.episode_accs.append(accs)
             mean, ci = mean_confidence_interval(accs)
             n_eps = len(accs)
             self.epoch_eps.append(n_eps / max(dt, 1e-9))

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.collectives import all_reduce_sum, rows_sharded
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose float32 weight is cast to the input's dtype."""
@@ -48,14 +50,24 @@ class _FlaxBatchNorm:
       ``nn.BatchNorm(mask=...)`` does: heads whose batch-statistics BNs run
       over bucket-padded batches keep the padding out of the real rows'
       normalisation.  Under running statistics (eval) it changes nothing.
+    - Inside ``parallel.sharded_rows`` in a run of several ranks (a call
+      over the sharded episode or flat batch axis) the statistics span
+      every rank's rows: two all-reduces, of the per-channel count and Σx,
+      then of Σ(x − mean)², the two-pass variance of the masked path (no
+      Σx² − n·mean² cancellation in float32).  The gradient flows through
+      both sums (``parallel.all_reduce_sum``), and the running update is
+      the same on every rank.  With one rank nothing changes.
     """
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         batch_stats = self.training or not self.track_running_stats
         update = self.training and self.track_running_stats
-        if not batch_stats or (mask is None and not update):
+        synced = batch_stats and rows_sharded()
+        if not batch_stats or (mask is None and not update and not synced):
             return super().forward(x)
-        if mask is None:
+        if synced or mask is not None:
+            out, mean, var = self._masked(x, mask, synced)
+        else:
             # momentum 1 into scratch buffers: they receive the batch mean and
             # the unbiased batch variance from the library's own training kernel
             mean = torch.zeros_like(self.running_mean)
@@ -63,8 +75,6 @@ class _FlaxBatchNorm:
             out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
             n = x.numel() // x.shape[1]
             var = var * ((n - 1) / n)
-        else:
-            out, mean, var = self._masked(x, mask)
         if update:
             self._update_running(mean, var)
         return out
@@ -75,16 +85,29 @@ class _FlaxBatchNorm:
         self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
         self.num_batches_tracked.add_(1)
 
-    def _masked(self, x: torch.Tensor, mask: torch.Tensor):
-        """Output, mean and biased variance over the rows where ``mask``, in
-        float32 at least (float64 stays float64)."""
+    def _masked(self, x: torch.Tensor, mask: Optional[torch.Tensor], synced: bool = False):
+        """Output, mean and biased variance over the rows where ``mask`` (all
+        rows when None), over every rank's rows when ``synced``, in float32
+        at least (float64 stays float64)."""
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        w = mask.to(xs.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
-        count = w.sum() * (xs[0, 0].numel())
-        mean = (xs * w).sum(dims) / count
-        var = (((xs - mean.reshape(shape)) ** 2) * w).sum(dims) / count
+        per_row = xs[0, 0].numel() if x.shape[0] else 1
+        if mask is None:
+            w = None
+            total = xs.sum(dims)
+            count = xs.new_full((), float(x.shape[0] * per_row))
+        else:
+            w = mask.to(xs.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+            total = (xs * w).sum(dims)
+            count = w.sum() * per_row
+        if synced:
+            moments = all_reduce_sum(torch.cat([count.reshape(1), total]))
+            count, total = moments[0], moments[1:]
+        mean = total / count
+        sq = (xs - mean.reshape(shape)) ** 2
+        sq = (sq if w is None else sq * w).sum(dims)
+        var = (all_reduce_sum(sq) if synced else sq) / count
         y = (xs - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(shape)
         if self.weight is not None:
             y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
@@ -116,6 +139,9 @@ class _SeededNoise(nn.Module):
     """A train-mode noise layer that draws from its own ``torch.Generator``
     on the input's device, seeded by ``seed_dropout`` (``reseed``), never
     from the global RNG."""
+
+    #: the draw spans the batch axis, so every rank draws rank 0's values
+    same_on_every_rank = False
 
     def __init__(self):
         super().__init__()
@@ -218,13 +244,17 @@ class DropBlock(_SeededNoise):
         return f"block_size={self.block_size}"
 
 
-def seed_dropout(module: nn.Module, seed: int) -> None:
+def seed_dropout(module: nn.Module, seed: int, rank: int = 0) -> None:
     """Seed every ``Dropout`` and ``DropBlock`` of ``module``, each (in module
-    order) with its own seed drawn from ``seed``."""
+    order) with its own seed drawn from ``seed``.  Over several ranks each
+    rank's masks come from those seeds plus ``rank``, so no two ranks share
+    a mask; a layer with ``same_on_every_rank`` (a draw over the whole batch
+    axis, S2M2's mixup) keeps the seed of rank 0."""
     gen = torch.Generator().manual_seed(int(seed))
     for m in module.modules():
         if isinstance(m, _SeededNoise):
-            m.reseed(int(torch.randint(2 ** 62, (), generator=gen)))
+            drawn = int(torch.randint(2 ** 62, (), generator=gen))
+            m.reseed(drawn if m.same_on_every_rank else drawn + int(rank))
 
 
 def activation_fn(leaky_relu: bool, negative_slope: float) -> Callable:

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..episode import EpisodeBatch, segment_targets
+from ..parallel.collectives import sharded_rows
 from ..utils.aggregate import majority_vote, segment_accuracy
 
 
@@ -66,6 +67,12 @@ class MethodBase(nn.Module):
     #: whether ``embed`` keeps the backbone's ``[c, h, w]`` maps (local-
     #: descriptor heads) instead of flattening them
     needs_feature_map = False
+    #: audited to compute over several ranks what it computes over one: its
+    #: loss is a mean over equally sharded episodes, and each reduction over
+    #: the episode axis (the backbone's BatchNorm moments, ``ood_topk``, the
+    #: calibration quantiles) is taken over all ranks.  ``Trainer`` and
+    #: ``Test`` refuse any other method at a world larger than one
+    shardable = False
 
     def __init__(self, emb_func: nn.Module, **kwargs):
         # kwargs: the episode geometry every classifier receives (way_num,
@@ -89,7 +96,8 @@ class MethodBase(nn.Module):
         e = batch.num_episodes
         ws = batch.support.shape[1]
         g = batch.query.shape[1]
-        feats = self.emb_func(self._flatten_inputs(batch))
+        with sharded_rows():  # the batch statistics span every rank's episodes
+            feats = self.emb_func(self._flatten_inputs(batch))
         if not self.needs_feature_map:
             feats = feats.reshape(feats.shape[0], -1)
         tail = feats.shape[1:]

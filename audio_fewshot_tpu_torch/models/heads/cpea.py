@@ -79,6 +79,7 @@ class CPEALayer(nn.Module):
 @CLASSIFIERS.register("CPEANet")
 class CPEANet(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
     #: the backbone hands over token sequences [N, 1 + L, C]
     needs_feature_map = True
     needs_map_shape = True

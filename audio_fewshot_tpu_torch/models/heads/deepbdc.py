@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ...episode import EpisodeBatch, materialize_episode_batch, segment_targets
+from ...parallel import World, gather_rows, shard_batch
 from ...registry import CLASSIFIERS
 from ...utils.aggregate import average_logits, majority_vote
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
@@ -43,6 +44,7 @@ def bdc_proto_logits(query_feat, support_feat, way: int, shot: int) -> torch.Ten
 class DeepBDC(MethodBase):
     model_type = ModelType.METRIC
     supports_energy_ood = True
+    shardable = True
     #: fraction of most-uncertain query clips flagged OOD
     ood_fraction = 0.2
 
@@ -87,10 +89,14 @@ class DeepBDC(MethodBase):
     def calibrate_threshold(self, loader, setting: EpisodeSetting,
                             policy: str = "mean",
                             dump_path: Optional[str] = None,
-                            bank: Optional[torch.Tensor] = None) -> Optional[float]:
+                            bank: Optional[torch.Tensor] = None,
+                            world: Optional[World] = None) -> Optional[float]:
         """Validation calibration pass over ``loader``'s epoch 0.  Sets and
         returns ``uncertain_global_threshold`` (None without a correct
-        prediction).  ``dump_path``: also write ``uncertainty_data.npz``."""
+        prediction).  ``dump_path``: also write ``uncertainty_data.npz``.
+        ``world`` of several ranks: each rank embeds its shard of a step, and
+        the step's uncertainties and correctness are gathered in rank order
+        before its quantile, so every rank takes the one-rank threshold."""
         device = next(self.parameters()).device
         # results stay on the device for `depth` steps: one host sync per
         # window instead of one per step
@@ -113,9 +119,10 @@ class DeepBDC(MethodBase):
             pending.clear()
 
         for host_batch in loader.epoch(0):
-            batch = materialize_episode_batch(host_batch.to(device), bank)
+            batch = materialize_episode_batch(shard_batch(host_batch, world, device=device), bank)
             seg_logits = self.forward(batch, setting)
-            pending.append(self.clip_uncertainty(seg_logits, batch))
+            u, ok = self.clip_uncertainty(seg_logits, batch)
+            pending.append((gather_rows(u, world), gather_rows(ok, world)))
             if len(pending) >= depth:
                 drain()
         drain()

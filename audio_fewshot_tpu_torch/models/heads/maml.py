@@ -137,6 +137,7 @@ def adapt_linear_head(weight: torch.Tensor, bias: torch.Tensor, sup_f: torch.Ten
 
 class MAMLBase(MethodBase):
     model_type = ModelType.META
+    shardable = True
     requires_batch_stat_bn = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True

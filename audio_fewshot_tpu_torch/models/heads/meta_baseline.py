@@ -26,6 +26,7 @@ def cosine_proto_logits(query_feat: torch.Tensor, support_feat: torch.Tensor, wa
 @CLASSIFIERS.register("MetaBaseline")
 class MetaBaseline(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
 
     def __init__(self, emb_func, temperature: float = 10.0, **kwargs):
         super().__init__(emb_func, **kwargs)

@@ -208,7 +208,10 @@ class FRNPretrain(FinetuningBase):
 class MixupDraws(_SeededNoise):
     """S2M2's mixup draws: λ ~ Beta(α, α) and a permutation of the batch,
     from a host numpy generator seeded by ``seed_dropout`` (the trainer
-    reseeds it each epoch)."""
+    reseeds it each epoch).  The permutation spans the whole flat batch, so
+    every rank draws the same values."""
+
+    same_on_every_rank = True
 
     def __init__(self, alpha: float):
         super().__init__()

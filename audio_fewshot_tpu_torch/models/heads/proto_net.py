@@ -75,6 +75,7 @@ def episode_features(method: MethodBase, batch: EpisodeBatch) -> Tuple[torch.Ten
 @CLASSIFIERS.register("ProtoNet")
 class ProtoNet(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
 
     def __init__(self, emb_func, mode: str = "euclidean", use_bpa: bool = False, **kwargs):
         super().__init__(emb_func, **kwargs)

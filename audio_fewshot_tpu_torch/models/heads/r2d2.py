@@ -55,6 +55,7 @@ class R2D2Layer(nn.Module):
 @CLASSIFIERS.register("R2D2")
 class R2D2(MethodBase):
     model_type = ModelType.META
+    shardable = True
 
     def __init__(self, emb_func, **kwargs):
         super().__init__(emb_func, **kwargs)
@@ -83,6 +84,7 @@ class R2D2MCL(R2D2):
     config; the defaults are every reproduce config's (katz 0.5, γ 20,
     γ₂ 10)."""
 
+    shardable = False  # its Katz query weights are not audited over ranks
     needs_feature_map = True
 
     def __init__(self, emb_func, katz_factor: float = 0.5, gamma: float = 20.0,

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import DualBatch, EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import _FlaxBatchNorm
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
@@ -272,6 +273,7 @@ class RENet(MethodBase):
     configs: the widths come from the map."""
 
     model_type = ModelType.METRIC
+    shardable = True
     needs_feature_map = True
     needs_map_shape = True
 
@@ -291,7 +293,9 @@ class RENet(MethodBase):
         """SCR over the support and query maps of every episode at once."""
         sup, qry = self.embed(batch)
         e, ws, c, h, w = sup.shape
-        refined = self.scr_layer(torch.cat([sup.reshape(-1, c, h, w), qry.reshape(-1, c, h, w)]))
+        with sharded_rows():
+            refined = self.scr_layer(torch.cat([sup.reshape(-1, c, h, w),
+                                                qry.reshape(-1, c, h, w)]))
         return refined[: e * ws].reshape(sup.shape), refined[e * ws:].reshape(qry.shape)
 
     def _episode_sims(self, sup: torch.Tensor, qry: torch.Tensor, setting: EpisodeSetting,
@@ -332,6 +336,7 @@ class RENet(MethodBase):
         if flat is not None:
             # after the episodic pass: its updated BN statistics and
             # DropBlock counters are the ones this pass starts from
-            g_pooled = self.scr_layer(self.emb_func(flat.data)).mean(dim=(2, 3))
+            with sharded_rows():
+                g_pooled = self.scr_layer(self.emb_func(flat.data)).mean(dim=(2, 3))
             loss = loss + cross_entropy(self.fc(g_pooled), flat.target.reshape(-1))
         return loss, LossOutput(sims, self.train_metrics(sims, batch))

@@ -24,7 +24,7 @@ the background subtraction is an exact linear-interpolation quantile.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -290,14 +290,28 @@ def augment_batch_with(specs: torch.Tensor, mean: float, std: float, name: str,
     return (_APPLY[name](specs * std + mean, **params) - mean) / std
 
 
+def select_rows(params: Dict[str, torch.Tensor], rows) -> Dict[str, torch.Tensor]:
+    """The values of the samples ``rows`` (a slice or an index tensor) of
+    ``draw_params``' output."""
+    return {k: v[rows] for k, v in params.items()}
+
+
 def augment_batch_one_type(specs: torch.Tensor, mean: float, std: float,
-                           generator: torch.Generator) -> torch.Tensor:
+                           generator: torch.Generator,
+                           part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Augment a batch ``[N, ..., H, W]`` with ONE type drawn for the whole
-    batch, and per-sample values."""
+    batch, and per-sample values.  ``part`` ``(offset, total)``: ``specs``
+    are rows ``[offset, offset + N)`` of a batch of ``total`` (a rank's shard
+    of the episode axis): the values are drawn for all ``total`` rows, and
+    these rows take theirs, as the whole batch's draw gives them."""
     name = AUGMENTATION_TYPES[int(torch.randint(len(AUGMENTATION_TYPES), (), generator=generator))]
     h, w = specs.shape[-2:]
-    return augment_batch_with(specs, mean, std, name,
-                              draw_params(name, specs.shape[0], h, w, generator))
+    n = specs.shape[0]
+    offset, total = part if part is not None else (0, n)
+    params = draw_params(name, total, h, w, generator)
+    if part is not None:
+        params = select_rows(params, slice(offset, offset + n))
+    return augment_batch_with(specs, mean, std, name, params)
 
 
 def augment_spectrogram(specs: torch.Tensor, mean: float, std: float,

@@ -21,6 +21,17 @@ epochs.  On a CLAP encoder (``CLAPBackbone``, or ``is_clap``) the backbone's
 [``profile_start``, ``profile_start + profile_steps``) of epoch 0 with
 ``torch.profiler`` (CPU, and CUDA on the card) into a Chrome trace under
 ``<log_dir>/profile/``.
+
+Over several ranks (``torchrun``, or ``run_trainer --nproc``; see
+``parallel``) each rank trains on its contiguous shard of every step's
+episodes (and of a ``DualBatch``'s flat rows): the backbone's BatchNorm
+moments span the ranks, the augmentation values are drawn for the whole
+step and sliced, the gradients are averaged over the ranks in one
+all-reduce before the optimizer step, and the validation accuracies are
+gathered in rank order, so the run computes what one rank computes (but for
+Dropout and DropBlock masks, drawn per rank).  Rank 0 alone writes the
+checkpoints, TensorBoard, the profiler trace and the log file.  A method
+not audited for it (``MethodBase.shardable``) raises at a world above one.
 """
 
 from __future__ import annotations
@@ -32,13 +43,14 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config, save_config
 from .data import FlatLoader, get_dataloader, get_mean_std
 from .data.bank import resolve_transfer_dtype, setup_segment_banks
 from .episode import (DualBatch, EpisodeBatch, FlatBatch, IndexedFlatBatch,
                       materialize_dual_batch, materialize_episode_batch, materialize_flat_batch)
-from .eval import SLICE_MODELS
+from .eval import SLICE_MODELS, world_for
 from .models import build_method, eval_setting, train_setting
 from .models.backbones.clap_encoder import CLAPAudioEncoder, load_checkpoint
 from .models.backbones.layers import seed_dropout
@@ -46,6 +58,8 @@ from .models.base import MethodBase, ModelType
 from .models.init import init_weights
 from .ops.audio_augmentations import augment_batch_one_type
 from .optim import LRScheduler, Optimizer, build_optimizer, build_scheduler
+from .parallel import (World, all_reduce_gradients, all_reduce_mean, gather_rows,
+                       maybe_init_distributed, replicate, shard_batch)
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.checkpoint import LAST, SaveType, load_last, load_part, save_model
 from .utils.meters import AverageMeter, TensorboardWriter
@@ -83,6 +97,26 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
     }).get_config_dict()
 
 
+def sharded_train_step(method: MethodBase, optimizer: Optimizer, batch, setting,
+                       world: World) -> Dict[str, torch.Tensor]:
+    """One optimizer step on this rank's shard: the loss, its backward, the
+    gradients averaged over the ranks, the step.  Returns the loss and the
+    method's metrics, averaged over the ranks (each a mean over equal
+    shards, so the whole batch's)."""
+    loss, out = method.loss(batch, setting)
+    optimizer.zero_grad()
+    loss.backward()
+    all_reduce_gradients(method.parameters(), world)
+    optimizer.step()
+    metrics = {"loss": loss.detach(), **out.metrics}
+    if world.size > 1:
+        keys = list(metrics)
+        means = all_reduce_mean(torch.stack([torch.as_tensor(metrics[k], device=loss.device)
+                                             .float().reshape(()) for k in keys]), world)
+        metrics = dict(zip(keys, means))
+    return metrics
+
+
 class Trainer:
     def __init__(self, rank: int, config: Dict[str, Any],
                  device: Optional[Union[str, torch.device]] = None):
@@ -91,18 +125,32 @@ class Trainer:
             # float32 means float32: cuDNN convolutions default to TF32
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        self.rank = rank
+        maybe_init_distributed(config, self.device)
+        self.rank = dist.get_rank() if dist.is_initialized() else rank
         self.config = config
         self.result_dir, self.ckpt_dir, self.log_dir = self._init_files(config)
         self.logger = init_logger(
             self.log_dir, level=config.get("log_level", "info"),
             file_name="{}-{}-train.log".format(
                 config["classifier"]["name"], config["backbone"]["name"]),
+            rank=self.rank,
         )
-        self.writer = TensorboardWriter(os.path.join(self.log_dir, "tfboard_files"))
+        tb_dir = os.path.join(self.log_dir, "tfboard_files")
+        self.writer = (TensorboardWriter(tb_dir) if self.rank == 0
+                       else TensorboardWriter(tb_dir, enabled=False))
         self.seed = int(config.get("seed", 0))
-        init_seed(self.seed)  # the initial weights
+        init_seed(self.seed, config.get("deterministic"))  # the initial weights
         self.method: MethodBase = build_method(config)
+        divisors = {"episode_size": config.get("episode_size", 1),
+                    "test_episode_size": config.get("test_episode_size")}
+        if (self.method.model_type == ModelType.FINETUNING
+                or int(config.get("dataloader_num", 1)) > 1):
+            divisors["batch_size"] = config.get("batch_size", 128)
+        self.world = world_for(config, self.method, self.device, divisors)
+        self.device = self.world.device
+        if self.world.size > 1:
+            self.logger.info("world: %d ranks (%s), this rank %d on %s", self.world.size,
+                             dist.get_backend(), self.rank, self.device)
         if config.get("init_type"):
             init_weights(self.method, config["init_type"],
                          torch.Generator().manual_seed(self.seed))
@@ -124,6 +172,7 @@ class Trainer:
         self.best_val_acc = -1.0
         self.best_test_acc = -1.0
         self._maybe_load_pretrain_or_resume()
+        replicate(self.method, self.world)  # every rank starts from rank 0's state
 
         self.augment = bool(config.get("augment", False)) and model_type != ModelType.FINETUNING
         self.aug_mean, self.aug_std = get_mean_std(config, "train")
@@ -148,8 +197,8 @@ class Trainer:
 
     def _init_files(self, config) -> Tuple[str, str, str]:
         """``<result_root>/<Classifier-data-backbone-way-shot[-tag]>/
-        {checkpoints, log_files}`` and the merged ``config.yaml``; a resumed
-        run reuses ``resume_path``."""
+        {checkpoints, log_files}`` and the merged ``config.yaml`` (made by
+        rank 0); a resumed run reuses ``resume_path``."""
         if config.get("resume") and config.get("resume_path"):
             result_dir = config["resume_path"]
         else:
@@ -162,9 +211,10 @@ class Trainer:
             result_dir = os.path.join(config.get("result_root", "./results"), name)
         ckpt_dir = os.path.join(result_dir, "checkpoints")
         log_dir = os.path.join(result_dir, "log_files")
-        for d in (result_dir, ckpt_dir, log_dir):
-            os.makedirs(d, exist_ok=True)
-        save_config(config, os.path.join(result_dir, "config.yaml"))
+        if self.rank == 0:
+            for d in (result_dir, ckpt_dir, log_dir):
+                os.makedirs(d, exist_ok=True)
+            save_config(config, os.path.join(result_dir, "config.yaml"))
         return result_dir, ckpt_dir, log_dir
 
     def _maybe_load_pretrain_or_resume(self) -> None:
@@ -193,8 +243,10 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _device_batch(self, host_batch, bank):
-        """An ``EpisodeBatch``, ``FlatBatch`` or ``DualBatch`` on the device
-        (gathered from ``bank`` when the loaders emit bank rows)."""
+        """This rank's shard of an ``EpisodeBatch``, ``FlatBatch`` or
+        ``DualBatch`` on the device (gathered from ``bank`` when the loaders
+        emit bank rows)."""
+        batch = shard_batch(host_batch, self.world, self.transfer_dtype)
         if bank is not None:
             if isinstance(host_batch, DualBatch):
                 materialize = materialize_dual_batch
@@ -202,22 +254,28 @@ class Trainer:
                 materialize = materialize_flat_batch
             else:
                 materialize = materialize_episode_batch
-            return materialize(host_batch.to(self.device), bank)
-        return host_batch.to(self.device, self.transfer_dtype)
+            return materialize(batch, bank)
+        return batch
 
     def _augment_batch(self, batch, gen: torch.Generator):
         """One random augmentation type for the support, one for the query
         and, in a ``DualBatch``, one for the flat half of a step, with
-        per-segment values."""
+        per-segment values (over several ranks, drawn for the whole step's
+        segments and sliced to this rank's)."""
+        world = self.world
+
+        def aug_rows(flat):
+            part = (world.rank * flat.shape[0], world.size * flat.shape[0])
+            return augment_batch_one_type(flat, self.aug_mean, self.aug_std, gen,
+                                          part if world.size > 1 else None)
+
         def aug(x):
-            flat = x.reshape((-1,) + x.shape[2:])
-            return augment_batch_one_type(flat, self.aug_mean, self.aug_std, gen).reshape(x.shape)
+            return aug_rows(x.reshape((-1,) + x.shape[2:])).reshape(x.shape)
 
         if isinstance(batch, DualBatch):
             return DualBatch(episode=self._augment_batch(batch.episode, gen),
-                             flat=FlatBatch(data=augment_batch_one_type(
-                                 batch.flat.data, self.aug_mean, self.aug_std, gen),
-                                 target=batch.flat.target))
+                             flat=FlatBatch(data=aug_rows(batch.flat.data),
+                                            target=batch.flat.target))
         return batch.replace(support=aug(batch.support), query=aug(batch.query))
 
     def _dual(self) -> bool:
@@ -252,11 +310,8 @@ class Trainer:
                 for e, f in zip(loaders[0].epoch(epoch), loaders[1].epoch(epoch)))
 
     def _train_step(self, batch: EpisodeBatch) -> Dict[str, torch.Tensor]:
-        loss, out = self.method.loss(batch, self.train_setting)
-        self.optimizer.zero_grad()
-        loss.backward()
-        self.optimizer.step()
-        return {"loss": loss.detach(), **out.metrics}
+        return sharded_train_step(self.method, self.optimizer, batch, self.train_setting,
+                                  self.world)
 
     # -- loops --------------------------------------------------------------
 
@@ -349,7 +404,7 @@ class Trainer:
         # an uninterrupted one would.  The dropout seed is the first draw of
         # the epoch's stream, so no two streams share a seed
         gen = torch.Generator().manual_seed(self.seed * 100003 + epoch)
-        seed_dropout(self.method, int(torch.randint(2 ** 62, (), generator=gen)))
+        seed_dropout(self.method, int(torch.randint(2 ** 62, (), generator=gen)), self.rank)
         self.method.train()
         losses: List[float] = []
         window = self._profile_window() if epoch == 0 else None
@@ -419,6 +474,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
+        if self.rank != 0:
+            return
         out_dir = os.path.join(self.log_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, "train_steps_{}-{}.json".format(*self._profile_window()))
@@ -434,7 +491,9 @@ class Trainer:
             batch = self._device_batch(host_batch, bank)
             seg_logits = self.method(batch, self.eval_setting)
             pending.append(self.method.eval_episode_accuracy(seg_logits, batch))
-        # one host sync per pass
+        # one host sync per pass; over several ranks each step's accuracies
+        # in rank order, the order one rank gives them in
+        pending = [gather_rows(acc, self.world) for acc in pending]
         accs = torch.cat(pending).cpu().tolist() if pending else []
         mean, ci = mean_confidence_interval(accs)
         self.eval_meter.update("acc", mean)
@@ -445,11 +504,15 @@ class Trainer:
     def _checkpoint(self, epoch: int, val_acc: Optional[float], test_acc: Optional[float]) -> None:
         cfg = self.config
         save_part = cfg.get("save_part") or []
-        if val_acc is not None and val_acc > self.best_val_acc:
+        best = val_acc is not None and val_acc > self.best_val_acc
+        if best:
             self.best_val_acc = val_acc
             # the test accuracy AT the best-val epoch, not a running max
             if test_acc is not None:
                 self.best_test_acc = test_acc
+        if self.rank != 0:  # every rank holds the same state; rank 0 writes it
+            return
+        if best:
             save_model(self.ckpt_dir, self.method, epoch, SaveType.BEST, save_part=save_part)
         if (epoch + 1) % int(cfg.get("save_interval", 10)) == 0:
             save_model(self.ckpt_dir, self.method, epoch, SaveType.NORMAL, save_part=save_part)

@@ -26,6 +26,8 @@ def init_logger(
     fmt = logging.Formatter("[%(asctime)s] %(levelname)s %(message)s", datefmt="%m/%d %H:%M:%S")
     console = logging.StreamHandler()
     console.setFormatter(fmt)
+    if rank != 0:  # the other ranks of a run print their warnings only
+        console.setLevel(logging.WARNING)
     logger.addHandler(console)
     if rank == 0 and log_dir:
         os.makedirs(log_dir, exist_ok=True)

@@ -42,14 +42,18 @@ class AverageMeter:
 
 class TensorboardWriter:
     """Step-stamped TensorBoard proxy, backed by torch's ``SummaryWriter``
-    when tensorboard is installed and a no-op otherwise."""
+    when tensorboard is installed and a no-op otherwise (and when not
+    ``enabled``: the ranks but 0 of a run write nothing)."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.step = 0
+        self._writer = None
+        if not enabled:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:  # tensorboard is optional
-            self._writer = None
+            pass
         else:
             self._writer = SummaryWriter(log_dir)
 

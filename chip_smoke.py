@@ -54,7 +54,7 @@ Phases (any failure ends the script with a non-zero exit code):
    after: the backward kernel must run once per train step;
 8. a JSON line with each kernel's launches, error and times, then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as the last line
-   (printed after phases 9-24, which run before it);
+   (printed after phases 9-25, which run before it);
 9. ProtoNet eval: ``proto_5shot_iid_seed0`` at full width (``eval.slice_config
    (classifier="ProtoNet")``: Conv64F with the 64 -> 1600 logits head, 16
    episodes per step, bf16) through ``Test``, with eps/s per epoch and the
@@ -75,10 +75,10 @@ Phases (any failure ends the script with a non-zero exit code):
    ConvMNet, ATLNet and MCL, each its shipped ``*_5shot_iid_seed0`` at full
    width (``eval.slice_config(classifier=...)``: Conv64F's [64, 4, 5] map,
    16 episodes a step, bf16 backbone, fp32 head) through ``Test``, cut to
-   one epoch of 256 test episodes: eval eps/s of the epoch, ms a step,
+   one epoch of 128 test episodes: eval eps/s of the epoch, ms a step,
    peak memory, BDC launches (must be 0), and one float32 episode's logits
    on the card against the CPU;
-13. their training: each through ``Trainer`` for one epoch of 20 episodes
+13. their training: each through ``Trainer`` for one epoch of 10 episodes
    with 16 val and test episodes (finite losses, train eps/s, ms a step, peak
    memory, BDC launches 0); then RelationNet: its shipped config must raise
    its error on the card, and at ``maxpool_last2: false`` (NOT the shipped
@@ -88,10 +88,11 @@ Phases (any failure ends the script with a non-zero exit code):
    bucket, 281 rows), one float32 episode card vs CPU; DeepBDC with ``use_bpa`` and the TTA
    re-vote at phase 11's cut, whose ``bdc_pool`` launches must be phase
    11's count;
-15. the heads on the plain resnet12 (MetaBaseline, MetaBaselineKendall,
-   FEAT, DSN on its flat 12800 features; FRN and CAN on its [640, 8, 9]
-   map), each its shipped ``*_5shot_iid_seed0`` at full width through
-   ``Test`` at one epoch of 32 test episodes: eval eps/s of each epoch, ms a
+15. the heads on the plain resnet12 (MetaBaseline and DSN on its flat
+   12800 features; FRN and CAN on its [640, 8, 9] map; MetaBaselineKendall
+   and FEAT only train, in phase 16), each its shipped
+   ``*_5shot_iid_seed0`` at full width through ``Test`` at one epoch of 32
+   test episodes: eval eps/s of each epoch, ms a
    step, peak memory, BDC launches (must be 0), one float32 episode's logits
    on the card against the CPU, and the phase's wall;
 16. their training, each one epoch at phase 13's cut with ``drop_rate`` 0.1
@@ -105,8 +106,9 @@ Phases (any failure ends the script with a non-zero exit code):
    width: 73 tokens of 192, 12 blocks, bf16 backbone, fp32 head) through
    ``Test`` at phase 12's cut (eval eps/s of each epoch, ms a step, peak
    memory, BDC launches 0), one float32 episode's logits on the card against
-   the CPU (with cuDNN's deterministic algorithms, in phase 18 too), and one
-   training epoch at phase 13's cut;
+   the CPU (with cuDNN's deterministic algorithms, as every card-vs-CPU
+   check: the configs' ``deterministic: true``), and one training epoch at
+   phase 13's cut;
 18. R2D2, MAML, ANIL and BOIL, each its shipped ``*_5shot_iid_seed0`` on
    Conv64F's 1600 flat features, the same way (MAML and ANIL adapt 10 inner
    steps an eval episode, BOIL evaluates NIL; MAML trains second order, two
@@ -186,11 +188,35 @@ Phases (any failure ends the script with a non-zero exit code):
    phase 15's cut, one training epoch at phase 13's), and a ``Trainer``
    step from a ``save_params`` npz through ``checkpoint_path`` (the loaded
    weights held equal to the saved ones).  BDC launches 0.
+25. episode-parallel (``parallel_phase``): the dry run's ProtoNet/Conv64F
+   cell (3 SGD steps of 8 episodes, float32), the flagship's training cell
+   (``deepbdc_5shot_iid_seed0`` at full width, 2 steps of 2 episodes, val
+   and test 8 episodes 4 a step, float32, SGD) and its eval with the TTA (8
+   episodes, 2 a step, float32) through ``Trainer`` and ``Test`` on one
+   rank (a 1-rank NCCL group on a 1-card machine), over 2 gloo ranks that
+   share card 0 (the 2-rank arithmetic with both CUDA kernels on every
+   rank) and, where the machine has several cards, over one NCCL rank a
+   card: each run's ranks, backend, wall, train ms a step and eval eps/s,
+   every rank's BDC launches (both kernels on every rank), each run
+   against the 1-rank one (ProtoNet at the CPU tests' limits; the
+   flagship's first loss and every parameter after its first step held
+   tightly, its later loss and parameters loosely, the calibration
+   threshold, the per-episode accuracies, with the limits printed), two
+   controls over the gloo ranks (no gradient all-reduce; BatchNorm moments
+   per rank) that the first-step limits must catch, the gradient
+   all-reduce's and the small all-reduces' share of a step timed between
+   syncs, the shipped bf16 train step's ms with ``deterministic`` true and
+   false, and phases 9 and 11's eval with and without
+   ``parallel.transfer_ahead``.
 
 To keep the script inside its time limit with phases 23-24, phase 15's
 eval cut (phases 15 and 20-24) is one epoch of 32 test episodes, not 64,
 and the card-vs-CPU episodes of the resnet12-family cells of phases 15, 20
-and 21 take ``CPU_QUERIES`` (16) query segments, as phase 22's.
+and 21 take ``CPU_QUERIES`` (16) query segments, as phase 22's; with phase
+25, phase 15 evaluates four of its six heads (MetaBaselineKendall's and
+FEAT's eval, 25.6 s and 43.1 s of its 100.1 s on an H100 80GB HBM3 at 700
+W, left out; phase 16 trains both), ``EVAL_CUT`` is one epoch of 128 test
+episodes and ``HEAD_TRAIN_CUT`` one epoch of 10 train episodes.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -198,7 +224,6 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import copy
 import inspect
 import json
@@ -229,13 +254,16 @@ LOGIT_REL_LIMIT = 1e-3
 # the Conv64F local-descriptor heads of phases 12 and 13 (RelationNet, which
 # fails at the shipped geometry, is run apart)
 METRIC_HEADS = ("DN4", "ADM", "ADM_KL", "ConvMNet", "ATLNet", "MCL")
-# phase 13's cut of a training cell: 1 epoch of 20 episodes, 16 val and test
-HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 20, "test_episode": 16}
-# phases 12 and 14's eval cut: one test epoch of 256 episodes (16 steps of
-# 16), so that its eps/s is read over many steps; a second such epoch
-# repeated it within a few per cent and was cut to keep the script inside
-# its time limit
-EVAL_CUT = {"test_episode": 256, "test_epoch": 1}
+# phase 13's cut of a training cell: 1 epoch of 10 episodes, 16 val and test
+# (a step of 16 where a cell's test_episode_size is 16); 20 train episodes
+# before phase 25 was added, when a whole call on an H100 80GB HBM3 at 700 W
+# read 1113.6 s of its 1200 (cut to keep the script inside its time limit)
+HEAD_TRAIN_CUT = {"epoch": 1, "train_episode": 10, "test_episode": 16}
+# phases 12 and 14's eval cut: one test epoch of 128 episodes (8 steps of
+# 16), so that its eps/s is read over several steps; a second epoch of 256
+# repeated it within a few per cent and was cut, then the epoch to
+# 128 (with phase 25), to keep the script inside its time limit
+EVAL_CUT = {"test_episode": 128, "test_epoch": 1}
 # the eval cut of phases 15 and 20-24 (phase 15's cut): one epoch of 32 test
 # episodes, 2 steps of 16 (a resnet12 step takes ≈ 0.6 s; phase 12's cut took
 # 200 s of phase 15; 64 episodes before phases 23-24 were added, cut to keep
@@ -243,6 +271,11 @@ EVAL_CUT = {"test_episode": 256, "test_epoch": 1}
 RESNET_EVAL_CUT = {"test_episode": 32, "test_epoch": 1}
 # phases 15 and 16: the heads on the plain resnet12, with the map each sees
 RESNET12_HEADS = ("MetaBaseline", "MetaBaselineKendall", "FEAT", "DSN", "FRN", "CAN")
+# phase 15's cells since phase 25 was added (cut to keep the script inside its
+# time limit): Kendall's eval (25.6 s, 5.4 s a step on an H100 80GB HBM3 at
+# 700 W) and FEAT's (43.1 s, its 655 M-parameter head rebuilt on the CPU)
+# left out; phase 16 still trains both
+RESNET12_EVAL_HEADS = ("MetaBaseline", "DSN", "FRN", "CAN")
 _FLAT = "resnet12's [640, 4, 5] avg-pooled map, 12800 features"
 RESNET12_MAPS = {"MetaBaseline": _FLAT, "MetaBaselineKendall": _FLAT, "FEAT": _FLAT,
                  "DSN": _FLAT, "FRN": "resnet12's [640, 8, 9] map",
@@ -348,6 +381,50 @@ SWIN_PROFILE_STEPS = 2
 CLAP_CLASSES, CLAP_CLIPS = 5, 16
 CLAP_CLI_BATCH = 8
 CLAP_CPU_CLIPS = 8
+# phase 25: the flagship over ranks, in float32 with TF32 off, so that 2
+# ranks and 1 differ only in the order of their sums.  Training: 2 steps of
+# 2 episodes (the shipped episode_size 1 does not split over 2 ranks), val
+# and test 8 episodes, 4 a step (float32 activations of 16 episodes' ragged
+# clips on two ranks that share the card ran out of its memory), SGD at lr
+# 0.005 (Adam's first steps move each weight by about +-lr whatever its
+# gradient's size, so a near-zero gradient's float32 rounding would show as
+# a whole step).  Eval with the TTA: 8 test episodes, 2 a step (16 a step
+# would embed 9600 augmented segments at once, 46 GiB for one float32
+# activation, more than the H100's 80 GB had left; two ranks on one card
+# ran out of it at 4 a step; phase 11 runs 8 a step in bf16)
+PARALLEL_TRAIN_CUT = {"epoch": 1, "train_episode": 4, "test_episode": 8}
+PARALLEL_EVAL_CUT = {"test_episode": 8, "test_epoch": 1, "test_episode_size": 2}
+PARALLEL_RANKS = 2
+# 2 ranks and 1 sum in other orders (the BatchNorm moments: two-pass over
+# the ranks, ATen's kernel on one).  What does not compound is held
+# tightly: the first step's loss and every parameter after the first step
+# (|Δθ₁| against the 1-rank run's first update).  The float32 BDC gradient
+# at random weights moves by 1-3 % of a tensor's scale with the order of
+# the sums alone (one rank, either arithmetic, on the CPU: ROADMAP Queue C),
+# and each later step compounds that (4 steps on an H100 80GB HBM3 at 700 W
+# read a loss gap of 1.06e-3): the run stops after 2 steps, and the second
+# step's loss and the parameters after both are held loosely.  The controls
+# (``FAULTS``) must fail the tight limits
+PARALLEL_FIRST_LOSS_RTOL = 1e-5
+PARALLEL_FIRST_UPDATE_REL = 1e-2
+PARALLEL_LOSS_RTOL = 2e-3
+PARALLEL_UPDATE_REL = 5e-2
+PARALLEL_THRESHOLD_RTOL = 1e-4
+# the flagged clips of a TTA step: at most one swapped at the 20 % cut
+PARALLEL_FLAG_SWAPS = 1
+# a clip's vote may flip on a near tie when a convolution sees 8 episodes
+# rather than 16: one clip of an episode's 50, at most, and 0.5 points on
+# average over the episodes
+PARALLEL_ACC_MAX, PARALLEL_ACC_MEAN = 2.0, 0.5
+# phase 25's ProtoNet/Conv64F cell: the dry run's ``proto_train`` (the JAX
+# package's mesh tests' cell, 3 SGD steps of 8 episodes, float32) at
+# tests/test_torch_port_parallel.py's limits: the first loss rtol 1e-6, the
+# others 2e-5, every parameter and statistic rtol 1e-3 / atol 5e-4, the
+# eval logits rtol 1e-3 / atol 1e-2
+PROTO_LIMITS = {"first_loss": 1e-6, "losses": 2e-5, "state": (1e-3, 5e-4),
+                "logits": (1e-3, 1e-2)}
+DETERMINISTIC_STEPS = 10
+PARALLEL_TIMEOUT_S = 300
 
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
@@ -480,6 +557,28 @@ def rel_err(ours, ref) -> float:
     return ((ours.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
 
 
+def tta_cell() -> dict:
+    """Phase 11's cell: the flagship's eval with the energy-OOD TTA, 32 test
+    episodes, 8 a step, 10 augmentations of up to 6 segments a clip."""
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    cfg = slice_config(test_episode=32, test_epoch=1, test_episode_size=8)
+    cfg.update(enhance_classification_via_energy=True, num_augmentations=10,
+               tta_segments_per_clip=6)
+    return cfg
+
+
+def transfer_ab_cells() -> dict:
+    """Phase 25's ``eval_transfer_ab`` cells: phase 9's ProtoNet eval (2
+    epochs of 4 steps, ≈ 1.5 s a run) with, without, without, with;
+    phase 11's TTA eval (≈ 7 s a run) with, then without."""
+    from audio_fewshot_tpu_torch.eval import slice_config
+
+    return {"phase 9's ProtoNet eval (bf16, 16 episodes a step)": (
+        slice_config(classifier="ProtoNet"), ("with", "without", "without", "with")),
+        "phase 11's TTA eval (bf16, 8 episodes a step)": (tta_cell(), ("with", "without"))}
+
+
 def run_test(cfg):
     """``Test.test_loop`` on random weights from the config's seed: eval eps/s
     of each test epoch, ms a step at their mean, peak GiB, accuracy and the
@@ -565,7 +664,7 @@ def float64_head_card_vs_cpu(cfg, g):
     from audio_fewshot_tpu_torch.models import build_method, eval_setting
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
-    init_seed(int(cfg["seed"]))
+    init_seed(int(cfg["seed"]), cfg.get("deterministic"))  # cuDNN as the config says
     method_cpu = build_method(cfg).eval()
     batch = first_episode(cfg, g).to("cpu")
     with torch.no_grad():
@@ -590,7 +689,7 @@ def card_vs_cpu(cfg, g, prepare=None):
     from audio_fewshot_tpu_torch.models import build_method, eval_setting
     from audio_fewshot_tpu_torch.utils.seed import init_seed
 
-    init_seed(int(cfg["seed"]))
+    init_seed(int(cfg["seed"]), cfg.get("deterministic"))  # cuDNN as the config says
     method_cpu = build_method(cfg).eval()
     if prepare is not None:
         prepare(method_cpu)
@@ -791,7 +890,7 @@ def resnet12_phases(g: int) -> None:
     t_phase = time.time()
     torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    for head in RESNET12_HEADS:
+    for head in RESNET12_EVAL_HEADS:
         t0 = time.time()
         hcfg = slice_config(classifier=head, **RESNET_EVAL_CUT)
         eps, ms, peak_gib, acc, bdc_launches = run_test(hcfg)
@@ -890,25 +989,6 @@ def resnet12_phases(g: int) -> None:
     print(flush=True)
 
 
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN's deterministic algorithms for a card-vs-CPU check of phases
-    17-18.  The default convolution gradients accumulate in an order that
-    varies between runs; MAML's 10 inner steps amplify that through conv1's
-    weight gradient (a sum over 502 k positions that cancels to ~0.5 % of
-    its terms): its fp32 logits read 2.0e-4 to 4.8e-4 from the CPU's over
-    three runs on one NVIDIA H100, 1.58e-5 in every run with these
-    algorithms."""
-    import torch
-
-    before = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = before
-
-
 def eval_and_train(head: str, label: str, what: str, g: int, card_cfg=None) -> None:
     """One head's eval cell through ``Test`` at ``EVAL_CUT`` (BDC launches
     0), one float32 episode card vs CPU (of ``card_cfg``'s model where it
@@ -934,9 +1014,8 @@ def eval_and_train(head: str, label: str, what: str, g: int, card_cfg=None) -> N
         raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {bdc_launches}")
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(
-            card_cfg or slice_config(classifier=head, precision="fp32"), g)
+    rel, agree, shape = card_vs_cpu(
+        card_cfg or slice_config(classifier=head, precision="fp32"), g)
     print(f"[{label}-eval] {head}{' (' + card_cfg['tag'] + ')' if card_cfg else ''} fp32 "
           f"segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
@@ -1030,8 +1109,7 @@ def vit_and_meta_phases(g: int) -> None:
     mcfg = slice_config(classifier="MCL", precision="fp32")
     mcfg["classifier"] = {"name": "R2D2MCL", "kwargs": None}
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(mcfg, g)
+    rel, agree, shape = card_vs_cpu(mcfg, g)
     print(f"[meta] R2D2MCL, NO shipped config (its JAX defaults: katz 0.5, gamma 20, gamma2 "
           f"10, on MCL's Conv64F [64, 4, 5] map): fp32 segment logits {shape}: card vs CPU "
           f"max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
@@ -1094,8 +1172,7 @@ def slice9_phase(g: int) -> None:
     extra.append(("DMatchingNet with single: true (NOT the shipped branch)", scfg, None))
     torch.backends.cudnn.allow_tf32 = False
     for label, cfg, prepare in extra:
-        with cudnn_deterministic():
-            rel, agree, shape = card_vs_cpu(cfg, g, prepare)
+        rel, agree, shape = card_vs_cpu(cfg, g, prepare)
         print(f"[slice9] {label}: fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
               f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
         if not rel <= LOGIT_REL_LIMIT:
@@ -1121,7 +1198,7 @@ def loss_card_vs_cpu(cfg, batch) -> tuple:
     cfg = copy.deepcopy(cfg)
     if "drop_rate" in inspect.signature(BACKBONES.get(cfg["backbone"]["name"])).parameters:
         cfg["backbone"]["kwargs"]["drop_rate"] = 0.0
-    init_seed(int(cfg["seed"]))
+    init_seed(int(cfg["seed"]), cfg.get("deterministic"))  # cuDNN as the config says
     method_cpu = build_method(cfg).train()
     for module in method_cpu.modules():
         if isinstance(module, Dropout):
@@ -1178,10 +1255,9 @@ def slice10_cell(head: str, g: int, label: str = "slice10", what: str = None) ->
         raise AssertionError(f"{head} eval: accuracy {acc}")
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
-                                        g if conv else CPU_QUERIES)
-        loss_gpu, loss_cpu, loss_rel = flat_loss_card_vs_cpu(head)
+    rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
+                                    g if conv else CPU_QUERIES)
+    loss_gpu, loss_cpu, loss_rel = flat_loss_card_vs_cpu(head)
     print(f"[{label}-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
           f"agreement {agree:.4f}")
@@ -1272,8 +1348,7 @@ def slice10_phase(g: int) -> tuple:
     scfg = slice_config(classifier="DeepBDC_Pretrain", precision="fp32")
     scfg["classifier"]["kwargs"]["val_type"] = "stl"
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(scfg, CPU_QUERIES)
+    rel, agree, shape = card_vs_cpu(scfg, CPU_QUERIES)
     print(f"[slice10] DeepBDC_Pretrain with val_type: stl (NO shipped config; the probe at "
           f"penalty_C 0.1): fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}")
@@ -1315,9 +1390,8 @@ def renet_cells() -> None:
         raise AssertionError(f"RENet eval: accuracy {acc}, BDC launches {launches}")
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier="RENet", precision="fp32"),
-                                        CPU_QUERIES)
+    rel, agree, shape = card_vs_cpu(slice_config(classifier="RENet", precision="fp32"),
+                                    CPU_QUERIES)
     print(f"[slice11-eval] RENet fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms), argmax "
           f"agreement {agree:.4f}", flush=True)
@@ -1330,8 +1404,7 @@ def renet_cells() -> None:
         batch = next(iter(loaders[0].epoch(0)))
         if len(loaders) > 1:
             batch = DualBatch(episode=batch, flat=next(iter(loaders[1].epoch(0))))
-        with cudnn_deterministic():
-            loss_gpu, loss_cpu, loss_rel = loss_card_vs_cpu(lcfg, batch)
+        loss_gpu, loss_cpu, loss_rel = loss_card_vs_cpu(lcfg, batch)
         print(f"[slice11-train] {cell} fp32 train step loss over the first "
               f"{'dual ' if len(loaders) > 1 else ''}batch (DropBlock off, NOT shipped): card "
               f"{loss_gpu:.6f}, CPU {loss_cpu:.6f}, |Δ|/|loss| {loss_rel:.3e} (limit "
@@ -1378,9 +1451,8 @@ def one_step_cell(head: str) -> None:
         raise AssertionError(f"{head} eval: accuracy {acc}, BDC launches {launches}")
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
-                                        CPU_QUERIES)
+    rel, agree, shape = card_vs_cpu(slice_config(classifier=head, precision="fp32"),
+                                    CPU_QUERIES)
     print(f"[slice11-eval] {head} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}; "
           f"{time.time() - t0:.1f} s", flush=True)
@@ -1453,9 +1525,8 @@ def slice12_cell(cell: str) -> tuple:
     if cell.startswith("MTL"):
         ccfg["classifier"]["kwargs"]["inner_param"]["iter"] = MTL_CARD_ITER
         note = f"; at {MTL_CARD_ITER} inner steps, NOT the shipped 100 (chaotic in float32)"
-    with cudnn_deterministic():
-        rel, agree, shape = card_vs_cpu(ccfg, WRN_CPU_QUERIES if cell.endswith("WRN") else
-                                        CPU_QUERIES)
+    rel, agree, shape = card_vs_cpu(ccfg, WRN_CPU_QUERIES if cell.endswith("WRN") else
+                                    CPU_QUERIES)
     print(f"[slice12-eval] {cell} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
           f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}; cuDNN's deterministic algorithms{note}), "
           f"argmax agreement {agree:.4f}", flush=True)
@@ -1570,8 +1641,7 @@ def ifsl_cycle(g: int) -> None:
         ccfg = slice_config(classifier="DMatchingNet:seed42", precision="fp32")
         ccfg["classifier"]["kwargs"]["ifsl_param"].update(feature_path=feature_path,
                                                           cls_path=parts["classifier"])
-        with cudnn_deterministic():
-            rel, agree, shape = card_vs_cpu(ccfg, g)
+        rel, agree, shape = card_vs_cpu(ccfg, g)
         print(f"[ifsl] stage 3 fp32 segment logits {shape} (both artifacts loaded): card vs "
               f"CPU max|Δ|/max|logit| {rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement "
               f"{agree:.4f}", flush=True)
@@ -1669,9 +1739,8 @@ def swin_phase() -> None:
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     for name in (cell, "ProtoNet:swin_mini"):
-        with cudnn_deterministic():
-            rel, agree, shape = card_vs_cpu(slice_config(classifier=name, precision="fp32"),
-                                            CPU_QUERIES)
+        rel, agree, shape = card_vs_cpu(slice_config(classifier=name, precision="fp32"),
+                                        CPU_QUERIES)
         print(f"[swin-eval] {name} fp32 segment logits {shape}: card vs CPU max|Δ|/max|logit| "
               f"{rel:.3e} (limit {LOGIT_REL_LIMIT:g}), argmax agreement {agree:.4f}",
               flush=True)
@@ -1704,6 +1773,437 @@ def swin_phase() -> None:
     torch.cuda.empty_cache()
     print(f"[swin] phase 23 wall {time.time() - t_phase:.1f} s; BDC launches 0", flush=True)
     print(flush=True)
+
+
+def _synchronize(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_batches(trainer, epoch: int):
+    """``trainer``'s host batches from ``epoch`` on, epoch after epoch."""
+    while True:
+        yield from trainer._host_batches(epoch)
+        epoch += 1
+
+
+def collective_times(trainer, steps: int = 3) -> dict:
+    """``steps`` more train steps of ``trainer`` (epoch 1's first batches)
+    with every ``all_reduce`` timed between device syncs: the step's ms, the
+    gradient all-reduce's (the one call over every parameter) and the rest's
+    (the BatchNorm moments, forward and backward, and the loss mean), each
+    a step.  The syncs slow the step; the share is of this timed step."""
+    import torch
+    import torch.distributed as dist
+
+    device = trainer.device
+    inner = dist.all_reduce
+    calls = []
+
+    def timed(tensor, *args, **kwargs):
+        _synchronize(device)
+        t0 = time.perf_counter()
+        out = inner(tensor, *args, **kwargs)
+        _synchronize(device)
+        calls.append((tensor.numel(), time.perf_counter() - t0))
+        return out
+
+    n_params = sum(p.numel() for p in trainer.method.parameters() if p.requires_grad)
+    trainer.method.train()  # the loop ends in eval mode, after its test pass
+    batches = train_batches(trainer, 1)
+    gen = torch.Generator().manual_seed(1)
+    dist.all_reduce = timed
+    try:
+        step_s = []
+        for _ in range(steps):
+            batch = trainer._device_batch(next(batches), trainer.train_bank)
+            if trainer.augment:
+                batch = trainer._augment_batch(batch, gen)
+            _synchronize(device)
+            t0 = time.perf_counter()
+            trainer._train_step(batch)
+            _synchronize(device)
+            step_s.append(time.perf_counter() - t0)
+    finally:
+        dist.all_reduce = inner
+    grad = [t for n, t in calls if n > n_params]
+    rest = [t for n, t in calls if n <= n_params]
+    return {"step_ms": 1e3 * sum(step_s) / steps, "grad_ms": 1e3 * sum(grad) / steps,
+            "other_ms": 1e3 * sum(rest) / steps, "other_calls": len(rest) // steps}
+
+
+# phase 25's controls: a sharding broken on purpose, which the limits must catch
+FAULTS = {
+    "gradients": "no gradient all-reduce (each rank steps on its own shard's gradient)",
+    "batchnorm": "BatchNorm moments per rank (not over every rank's rows)",
+}
+
+
+def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None) -> dict:
+    """The flagship training cell through ``Trainer`` (its ``train_loop``:
+    the steps, a val and a test pass, the checkpoints on rank 0): the
+    history, the first step's loss, every parameter before the loop, after
+    its first step and after it, each as one vector, and
+    ``collective_times`` of ``timed_steps`` more (warm) steps.  ``fault``
+    (a key of ``FAULTS``) breaks the sharding for a control run."""
+    import torch
+
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.models.backbones import layers
+
+    def params():
+        return torch.cat([p.detach().float().reshape(-1).cpu()
+                          for p in trainer.method.parameters()])
+
+    trainer = train.Trainer(0, copy.deepcopy(cfg), device=world.device)
+    start, first = params(), {}
+    step = trainer._train_step
+
+    def first_step(batch):
+        out = step(batch)
+        if not first:
+            first.update(loss=float(out["loss"]), params=params())
+        return out
+
+    trainer._train_step = first_step
+    patched = {"gradients": (train, "all_reduce_gradients", lambda params_, world_: None),
+               "batchnorm": (layers, "rows_sharded", lambda: False)}.get(fault)
+    saved = patched and getattr(patched[0], patched[1])
+    if patched:
+        setattr(patched[0], patched[1], patched[2])
+    try:
+        t0 = time.time()
+        trainer.train_loop()
+        _synchronize(world.device)
+        wall = time.time() - t0
+    finally:
+        if patched:
+            setattr(patched[0], patched[1], saved)
+    trainer._train_step = step
+    return {"history": trainer.history, "params0": start, "first": first, "params": params(),
+            "wall": wall,
+            "collectives": collective_times(trainer, timed_steps) if timed_steps else None}
+
+
+def step_times(world, cfg: dict, steps: int = 10, warmup: int = 3) -> dict:
+    """The flagship train step's ms (host clock between device syncs, the
+    mean of ``steps`` after ``warmup``) with cuDNN's deterministic
+    algorithms (``deterministic: true``, every shipped config's) and with
+    autotuning (false), on one ``Trainer``."""
+    import torch
+
+    from audio_fewshot_tpu_torch.train import Trainer
+    from audio_fewshot_tpu_torch.utils.seed import set_deterministic
+
+    trainer = Trainer(0, copy.deepcopy(cfg), device=world.device)
+    trainer.method.train()
+    gen = torch.Generator().manual_seed(2)
+    out = {}
+    for deterministic in (True, False):
+        set_deterministic(deterministic)
+        batches = train_batches(trainer, 0)
+        times = []
+        for i in range(warmup + steps):
+            batch = trainer._device_batch(next(batches), trainer.train_bank)
+            if trainer.augment:
+                batch = trainer._augment_batch(batch, gen)
+            _synchronize(world.device)
+            t0 = time.perf_counter()
+            trainer._train_step(batch)
+            _synchronize(world.device)
+            if i >= warmup:
+                times.append(time.perf_counter() - t0)
+        out[deterministic] = 1e3 * sum(times) / len(times)
+    set_deterministic(bool(cfg.get("deterministic", True)))
+    return out
+
+
+#: phase 25's scenarios beside the dry run's (module-level: the ranks
+#: import this script by name and look them up)
+PARALLEL_SCENARIOS = {"flagship_cell": flagship_cell}
+
+
+def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
+    """Phase 25's plan under ``root`` for the run ``tag``: the dry run's
+    ProtoNet/Conv64F cell, the flagship's training cell
+    (``train.slice_config`` at ``PARALLEL_TRAIN_CUT``, 2 episodes a step,
+    float32, SGD) and its TTA eval (``eval.slice_config`` at
+    ``PARALLEL_EVAL_CUT``, float32) over a random-weight checkpoint from the
+    seed; with ``controls``, the training cell again under each of
+    ``FAULTS``."""
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.eval import slice_config
+    from audio_fewshot_tpu_torch.models import build_method
+    from audio_fewshot_tpu_torch.utils.checkpoint import save_model_best
+    from audio_fewshot_tpu_torch.utils.seed import init_seed
+
+    def training(run):
+        cfg = train.slice_config(os.path.join(root, run), **PARALLEL_TRAIN_CUT)
+        cfg.update(episode_size=2, test_episode_size=4, precision="fp32",
+                   optimizer={"name": "SGD", "kwargs": {"lr": 0.005}, "other": None})
+        return cfg
+
+    ecfg = slice_config(precision="fp32", **PARALLEL_EVAL_CUT)
+    ecfg["enhance_classification_via_energy"] = True
+    weights = os.path.join(root, "eval_weights")
+    if not os.path.isdir(weights):
+        init_seed(int(ecfg["seed"]))
+        save_model_best(weights, build_method(ecfg))
+    plan = {"proto_train": {}, "flagship_cell": {"cfg": training(tag)},
+            "tta_eval": {"cfg": ecfg, "result_path": weights}}
+    for fault in FAULTS if controls else ():
+        plan[f"flagship_cell:{fault}"] = {"cfg": training(f"{tag}_{fault}"), "timed_steps": 0,
+                                          "fault": fault}
+    return plan
+
+
+def flagship_gaps(cell: dict, ref: dict) -> dict:
+    """A training cell's gaps from the 1-rank run's: each loss's relative
+    gap, and |Δθ| against the 1-rank run's update after the first step and
+    after the last."""
+    losses = [v for r in cell["history"] for v in r["train_losses"]]
+    ref_losses = [v for r in ref["history"] for v in r["train_losses"]]
+    first = ref["first"]["params"] - ref["params0"]
+    update = ref["params"] - ref["params0"]
+    return {"losses": losses, "ref_losses": ref_losses,
+            "rel": [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses, strict=True)],
+            "first_loss": abs(cell["first"]["loss"] - ref["first"]["loss"])
+            / abs(ref["first"]["loss"]),
+            "first_update": float((cell["first"]["params"] - ref["first"]["params"]).norm()
+                                  / first.norm()),
+            "update": float((cell["params"] - ref["params"]).norm() / update.norm()),
+            "update_share": float(update.norm() / ref["params"].norm())}
+
+
+def first_step_held(g: dict) -> bool:
+    return (g["first_loss"] <= PARALLEL_FIRST_LOSS_RTOL
+            and g["first_update"] <= PARALLEL_FIRST_UPDATE_REL)
+
+
+def proto_gaps(many: dict, one: dict) -> dict:
+    """The ProtoNet cell's gaps from the 1-rank run's, each as a multiple of
+    its ``PROTO_LIMITS`` limit (at most 1 holds)."""
+    import torch
+
+    def worst(a, b, rtol, atol):
+        a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    a, b = many["proto_train"], one["proto_train"]
+    lim = PROTO_LIMITS
+    return {"first_loss": worst(a["losses"][:1], b["losses"][:1], lim["first_loss"], 0.0),
+            "losses": worst(a["losses"], b["losses"], lim["losses"], 0.0),
+            "state": max(worst(a["state"][k], b["state"][k], *lim["state"]) for k in b["state"]),
+            "logits": worst(a["logits"], b["logits"], *lim["logits"])}
+
+
+def parallel_compare(label: str, many: dict, one: dict) -> None:
+    """Rank 0's results of a run over ranks against the 1-rank run's: the
+    ProtoNet cell at the CPU tests' limits; the flagship's losses, every
+    parameter after the first step and after the last (against the 1-rank
+    run's update), the calibration threshold, the flagged clips of each TTA
+    step and the per-episode accuracies; fails past the limits."""
+    import torch
+
+    proto = proto_gaps(many, one)
+    print(f"[parallel] {label} against 1 rank, ProtoNet/Conv64F (3 SGD steps of 8 episodes, "
+          f"float32): each gap as a multiple of its limit (at most 1 holds) "
+          f"{ {k: f'{v:.3e}' for k, v in proto.items()} }; limits {PROTO_LIMITS}; losses "
+          f"{many['proto_train']['losses']} against {one['proto_train']['losses']}", flush=True)
+    g = flagship_gaps(many["flagship_cell"], one["flagship_cell"])
+    ta, tb = many["tta_eval"]["threshold"], one["tta_eval"]["threshold"]
+    th_rel = abs(ta - tb) / abs(tb)
+    acc = torch.tensor(many["tta_eval"]["episode_accs"][0])
+    acc_ref = torch.tensor(one["tta_eval"]["episode_accs"][0])
+    dacc = (acc - acc_ref).abs()
+    swaps = [len(set(a.tolist()) ^ set(b.tolist())) // 2 for a, b in zip(
+        many["tta_eval"]["flagged"], one["tta_eval"]["flagged"], strict=True)]
+    print(f"[parallel] {label} against 1 rank, the flagship: train losses "
+          f"{[round(v, 6) for v in g['losses']]} against {[round(v, 6) for v in g['ref_losses']]}"
+          f", rel {[f'{v:.2e}' for v in g['rel']]} (limits {PARALLEL_FIRST_LOSS_RTOL:g} first, "
+          f"{PARALLEL_LOSS_RTOL:g}); every parameter after the first step |Δθ| / |1 rank's "
+          f"first update| {g['first_update']:.3e} (limit {PARALLEL_FIRST_UPDATE_REL:g}), after "
+          f"the last |Δθ| / |1 rank's update| {g['update']:.3e} (limit {PARALLEL_UPDATE_REL:g}; "
+          f"|update| / |θ| {g['update_share']:.3e}); calibration threshold rel {th_rel:.3e} "
+          f"(limit {PARALLEL_THRESHOLD_RTOL:g}); flagged clips swapped per TTA step {swaps} "
+          f"(limit {PARALLEL_FLAG_SWAPS}); per-episode accuracies of {len(acc)} episodes: max "
+          f"|Δ| {dacc.max().item():.3f}, mean {dacc.mean().item():.4f} (limits "
+          f"{PARALLEL_ACC_MAX:g}, {PARALLEL_ACC_MEAN:g})", flush=True)
+    if not (max(proto.values()) <= 1.0 and first_step_held(g)
+            and max(g["rel"]) <= PARALLEL_LOSS_RTOL and g["update"] <= PARALLEL_UPDATE_REL
+            and th_rel <= PARALLEL_THRESHOLD_RTOL and max(swaps) <= PARALLEL_FLAG_SWAPS
+            and len(acc) == len(acc_ref) and dacc.max() <= PARALLEL_ACC_MAX
+            and dacc.mean() <= PARALLEL_ACC_MEAN):
+        raise AssertionError(f"{label} disagrees with the 1-rank run")
+    for fault, what in FAULTS.items():
+        key = f"flagship_cell:{fault}"
+        if key not in many:
+            continue
+        c = flagship_gaps(many[key], one["flagship_cell"])
+        print(f"[parallel] {label}, control: {what}: first loss rel {c['first_loss']:.3e} "
+              f"(limit {PARALLEL_FIRST_LOSS_RTOL:g}), every parameter after the first step "
+              f"|Δθ| / |1 rank's first update| {c['first_update']:.3e} (limit "
+              f"{PARALLEL_FIRST_UPDATE_REL:g}): "
+              f"{'held, so the limits do not see it' if first_step_held(c) else 'caught'}",
+              flush=True)
+        if first_step_held(c):
+            raise AssertionError(f"{label}: the control '{what}' passes the first-step limits")
+
+
+def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
+    """One line per run: ranks, backend, wall, train ms a step, eval eps/s;
+    the BDC launches summed over the ranks (each rank must launch both, the
+    3 warm steps of ``collective_times`` included)."""
+    launches = [r["launches"] for r in results]
+    if any(f == 0 or b == 0 for f, b in launches):
+        raise AssertionError(f"{label}: a rank launched no BDC kernel: {launches}")
+    cell, tta = results[0]["flagship_cell"], results[0]["tta_eval"]
+    warm = cell["collectives"]["step_ms"]
+    losses = [v for r in cell["history"] for v in r["train_losses"]]
+    values = losses + [cell["history"][-1][k] for k in ("val_acc", "test_acc")] + [
+        tta["mean"], tta["threshold"]] + results[0]["proto_train"]["losses"]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: non-finite loss, accuracy or threshold")
+    print(f"[parallel] {label}: {len(results)} rank(s), {wall:.1f} s wall (start-up, "
+          f"training {cell['wall']:.1f} s, TTA eval); train {cell['history'][0]['step_ms']:.1f} "
+          f"ms a step of 2 episodes ({len(losses)} steps, the first cold; loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}), {warm:.1f} ms a warm step (3 more, between syncs); TTA "
+          f"eval eps/s {[round(v, 2) for v in tta['eps']]}, accuracy "
+          f"{tta['mean']:.3f}, threshold {tta['threshold']:.6f}; launches per rank (bdc_pool, "
+          f"bdc_pool_backward) {launches}; {smi}", flush=True)
+    return sum(f for f, _ in launches), sum(b for _, b in launches)
+
+
+def eval_transfer_ab(cells: dict, smi: str) -> tuple:
+    """Each eval cell of ``cells`` (``{label: (config, order)}``) through
+    ``run_test`` with ``parallel.transfer_ahead`` (the next step's shard
+    copied from page-locked memory on a side stream, a drain every
+    ``eval_queue_depth`` steps) and without it (each step copied when it is
+    needed, one drain an epoch: the eval loop before the ``parallel``
+    package), in ``order`` (of "with" and "without"); eps/s per epoch of
+    each run.  Returns the BDC launches of all runs."""
+    from audio_fewshot_tpu_torch import eval as port_eval
+    from audio_fewshot_tpu_torch.parallel import shard_batch
+
+    ahead = port_eval.transfer_ahead
+
+    def when_needed(batches, world, transfer_dtype=None):
+        for b in batches:
+            yield shard_batch(b, world, transfer_dtype)
+
+    forward = backward = 0
+    for label, (cfg, order) in cells.items():
+        eps = {"with": [], "without": []}
+        for mode in order:
+            c = copy.deepcopy(cfg)
+            if mode == "without":
+                port_eval.transfer_ahead = when_needed
+                c["eval_queue_depth"] = 1 << 30
+            try:
+                got, _, _, _, launches = run_test(c)
+            finally:
+                port_eval.transfer_ahead = ahead
+            eps[mode].append([round(v, 2) for v in got])
+            forward, backward = forward + launches[0], backward + launches[1]
+        print(f"[parallel] {label}, eval eps/s per epoch with transfer_ahead {eps['with']}, "
+              f"without (copies when needed, one drain an epoch) {eps['without']} (runs in "
+              f"the order {', '.join(order)}); {smi}", flush=True)
+    return forward, backward
+
+
+def parallel_phase(smi: str, eval_cells: dict) -> tuple:
+    """Phase 25: the dry run's ProtoNet cell, the flagship's training cell
+    and its TTA eval on one rank (a 1-rank NCCL group on a 1-card machine),
+    over ``PARALLEL_RANKS`` gloo ranks that share card 0 (with the
+    controls of ``FAULTS``), and, where the machine has several cards,
+    over one NCCL rank a card and over ``PARALLEL_RANKS`` NCCL ranks; each
+    run against the 1-rank one.  Then the shipped bf16 train step's ms with
+    cuDNN's deterministic algorithms and with autotuning, and
+    ``eval_transfer_ab`` of ``eval_cells``.  Returns the BDC launches of
+    every run (each rank launches both kernels)."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_fewshot_tpu_torch import dryrun_multigpu as dry
+    from audio_fewshot_tpu_torch import train
+    from audio_fewshot_tpu_torch.ops import bdc_cuda
+    from audio_fewshot_tpu_torch.parallel import World
+
+    t_phase = time.time()
+    cards = torch.cuda.device_count()
+    forward = backward = 0
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        # one rank, in this process
+        t0 = time.time()
+        group = cards == 1  # the card count's NCCL world is this one rank
+        if group:
+            dist.init_process_group("nccl", init_method=f"file://{root}/rdzv1", world_size=1,
+                                    rank=0)
+        try:
+            bdc_cuda.launches = bdc_cuda.backward_launches = 0
+            one = dry.run_scenarios(World(0, 1, torch.device("cuda", 0)),
+                                    parallel_cells(root, "one"), PARALLEL_SCENARIOS)
+            torch.cuda.synchronize()
+            one["launches"] = (bdc_cuda.launches, bdc_cuda.backward_launches)
+        finally:
+            if group:
+                dist.destroy_process_group()
+        label = "1 NCCL rank (the card count)" if group else "1 rank"
+        f, b = parallel_report(label, [one], time.time() - t0, smi)
+        forward, backward = forward + f, backward + b
+        torch.cuda.empty_cache()  # the ranks below share this card's memory
+        # two gloo ranks on card 0: the 2-rank arithmetic with both kernels
+        t0 = time.time()
+        gloo = dry.run_ranks(PARALLEL_RANKS, parallel_cells(root, "gloo", controls=True),
+                             "cuda:0", "gloo", init_method=f"file://{root}/rdzv2",
+                             timeout=PARALLEL_TIMEOUT_S, scenarios=PARALLEL_SCENARIOS)
+        label = f"{PARALLEL_RANKS} gloo ranks sharing cuda:0 (the 2-rank arithmetic)"
+        f, b = parallel_report(label, gloo, time.time() - t0, smi)
+        forward, backward = forward + f, backward + b
+        shares = gloo[0]["flagship_cell"]["collectives"]
+        print(f"[parallel] {label}, {shares['other_calls']} small all-reduces a step (the "
+              f"BatchNorm moments forward and backward, the loss mean) and one over every "
+              f"gradient, each timed between device syncs over 3 more steps: step "
+              f"{shares['step_ms']:.1f} ms, gradient all-reduce {shares['grad_ms']:.1f} ms "
+              f"({100 * shares['grad_ms'] / shares['step_ms']:.1f} %), the small ones "
+              f"{shares['other_ms']:.1f} ms ({100 * shares['other_ms'] / shares['step_ms']:.1f} "
+              f"%); {smi}", flush=True)
+        parallel_compare(label, gloo[0], one)
+        for n in sorted({cards, PARALLEL_RANKS}) if cards > 1 else ():
+            t0 = time.time()
+            nccl = dry.run_ranks(n, parallel_cells(root, f"nccl{n}"), "cuda", "nccl",
+                                 init_method=f"file://{root}/rdzv_nccl{n}",
+                                 timeout=PARALLEL_TIMEOUT_S, scenarios=PARALLEL_SCENARIOS)
+            label = f"{n} NCCL ranks, one a card"
+            f, b = parallel_report(label, nccl, time.time() - t0, smi)
+            forward, backward = forward + f, backward + b
+            shares = nccl[0]["flagship_cell"]["collectives"]
+            print(f"[parallel] {label}: step {shares['step_ms']:.1f} ms, gradient all-reduce "
+                  f"{shares['grad_ms']:.1f} ms, the {shares['other_calls']} small ones "
+                  f"{shares['other_ms']:.1f} ms (timed between syncs); {smi}", flush=True)
+            parallel_compare(label, nccl[0], one)
+        # the shipped cell's bf16 train step, deterministic: true and false
+        torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
+        bdc_cuda.launches = bdc_cuda.backward_launches = 0
+        tcfg = train.slice_config(os.path.join(root, "steps"))
+        ms = step_times(World(0, 1, torch.device("cuda", 0)), tcfg, DETERMINISTIC_STEPS)
+        torch.cuda.synchronize()
+        forward, backward = forward + bdc_cuda.launches, backward + bdc_cuda.backward_launches
+        print(f"[parallel] deepbdc_5shot_iid_seed0 train step (bf16, Adam, 75 segments, one "
+              f"rank), mean of {DETERMINISTIC_STEPS} after 3: deterministic: true (cuDNN's "
+              f"deterministic algorithms, the shipped configs' setting) {ms[True]:.2f} ms, "
+              f"false (autotuned) {ms[False]:.2f} ms; {smi}", flush=True)
+        if not all(math.isfinite(v) for v in ms.values()):
+            raise AssertionError("phase 25: non-finite step time")
+    f, b = eval_transfer_ab(eval_cells, smi)
+    forward, backward = forward + f, backward + b
+    print(f"[parallel] phase 25 wall {time.time() - t_phase:.1f} s; BDC launches: forward "
+          f"{forward}, backward {backward}", flush=True)
+    print(flush=True)
+    return forward, backward
 
 
 def audio_root(root: str, classes: int, clips: int, seed: int, samples=None) -> str:
@@ -1937,9 +2437,7 @@ def main() -> int:
     del probe
     # phase 11's cell, and the batches it gives the kernel: its calibration
     # and test steps, and the augmented segments of its flagged clips
-    ecfg = slice_config(test_episode=32, test_epoch=1, test_episode_size=8)
-    ecfg.update(enhance_classification_via_energy=True, num_augmentations=10,
-                tta_segments_per_clip=6)
+    ecfg = tta_cell()
     b_tta = set()
     for split in ("val", "test"):
         probe = next(iter(get_dataloader(ecfg, split)[0].epoch(0)))
@@ -2418,6 +2916,7 @@ def main() -> int:
     r18_forward, r18_backward = slice12_phase()
     swin_phase()
     clap_phase()
+    par_forward, par_backward = parallel_phase(smi, transfer_ab_cells())
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[(b_main, m_main)]
@@ -2427,7 +2926,7 @@ def main() -> int:
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc_pallas.py:23",
-        "launches": launches + pre_forward + r18_forward,
+        "launches": launches + pre_forward + r18_forward + par_forward,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2439,7 +2938,7 @@ def main() -> int:
         "route": "cuda",
         "source": "audio_fewshot_tpu_torch/csrc/bdc_pool_backward.cu",
         "replaces": "audio_fewshot_tpu/ops/bdc.py:23",
-        "launches": train_backward + pre_backward + r18_backward,
+        "launches": train_backward + pre_backward + r18_backward + par_backward,
         "max_abs_err": bwd_err,
         "ms": bms,
         "plain_ms": bplain_ms,
