@@ -4,7 +4,10 @@ of ProtoNet/Conv64F training, a ragged ProtoNet eval with the majority
 vote, flagship DeepBDC/resnet12Bdc training, RENet's dual (episodic + flat)
 step, DeepBDC's energy-OOD TTA eval through ``Test``, a MAML outer step
 (``torch.autograd.grad`` in its inner loop) and CPEANet on a small
-VisionTransformer, run over N ranks and over one; every number the N-rank
+VisionTransformer; flat (FINETUNING) steps of Baseline, MetabaselinePretrain
+and S2M2 (its mixup partners from every rank), FEAT, MeTAL on both loss-net
+paths, a ``Trainer``'s replicated eval of 3 episodes a step and IfslPretrain's
+featuring pass, run over N ranks and over one; every number the N-rank
 run gives must be the one-rank run's, up to the order of its float32
 sums (``mismatch``, ``COMPARED``).
 
@@ -23,6 +26,7 @@ numbers).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import datetime
 import os
@@ -99,11 +103,14 @@ def _cpu_state(method) -> Dict[str, torch.Tensor]:
 
 
 def _train(world: World, cfg: Dict[str, Any], batches: Sequence[Any], state: Optional[str],
-           eval_batch=None) -> Dict[str, Any]:
+           eval_batch=None, prepare: Optional[Callable] = None) -> Dict[str, Any]:
     """``batches`` as train steps (each rank its shard): the losses, the
     state after the first step and after the last, then the eval-mode
-    logits of ``eval_batch`` gathered over the ranks."""
+    logits of ``eval_batch`` gathered over the ranks.  ``prepare(method)``
+    runs on the built method first."""
     method = _method(cfg, state, world.device).train()
+    if prepare is not None:
+        prepare(method)
     optimizer = build_optimizer(cfg, method)
     setting = train_setting(cfg)
     losses, first = [], None
@@ -260,6 +267,218 @@ def head_step(world: World, head: str, steps: int = 2) -> Dict[str, Any]:
                   episode_batches(steps, seed=4), None)
 
 
+#: the flat (FINETUNING) heads on the cell's Conv64F map (384 features),
+#: 6 train classes; DeepBDC_Pretrain on resnet12Bdc at ``reduce_dim`` 8
+FLAT_HEADS = ("Baseline", "BaselinePlus", "NegNet", "RFSModel", "SKDModel",
+              "MetabaselinePretrain", "FEAT_Pretrain", "DeepBDC_Pretrain", "FRN_Pretrain",
+              "MTLPretrain", "MetabaselineKendallPretrain", "IfslPretrain", "S2M2")
+FLAT_CLASSES = 6
+
+
+def flat_config(head: str = "Baseline", **over) -> Dict[str, Any]:
+    """``head`` on the cell (float32, SGD at lr 0.05), trained on flat
+    batches of 8 rows of ``FLAT_CLASSES`` classes and evaluated 3-way 2-shot
+    2-query (its eval adaptation cut to 3 steps)."""
+    cfg = proto_config(classifier={"name": head, "kwargs": {
+        "num_class": FLAT_CLASSES, "inner_param": {"inner_train_iter": 3,
+                                                   "inner_batch_size": 4}}},
+        batch_size=8)
+    if head == "DeepBDC_Pretrain":
+        cfg["backbone"] = {"name": "resnet12Bdc", "kwargs": {"num_channels": 1, "reduce_dim": 8}}
+    cfg.update(over)
+    return cfg
+
+
+def flat_batches(n_steps: int, rows: int = 8, seed: int = 6) -> List[FlatBatch]:
+    """``n_steps`` flat batches of ``rows`` normal draws on the cell's
+    segments and targets among ``FLAT_CLASSES``."""
+    rng = np.random.default_rng(seed)
+    return [FlatBatch(data=rng.normal(size=(rows,) + SPEC).astype(np.float32),
+                      target=rng.integers(0, FLAT_CLASSES, size=(rows,)).astype(np.int32))
+            for _ in range(n_steps)]
+
+
+def flat_train(world: World, head: str = "Baseline", state=None, steps: int = 2,
+               evaluate: bool = False) -> Dict[str, Any]:
+    """``steps`` flat SGD steps of 8 rows of a ``FLAT_HEADS`` head (4 a rank
+    over 2): the losses and the state after the first step and after the
+    last; with ``evaluate``, the eval logits of 8 episodes."""
+    eval_batch = episode_batches(1, seed=7)[0] if evaluate else None
+    return _train(world, flat_config(head), flat_batches(steps), state, eval_batch)
+
+
+def pretrain_train(world: World, state=None) -> Dict[str, Any]:
+    """MetabaselinePretrain: two flat steps and its cosine-prototype eval
+    logits."""
+    return flat_train(world, "MetabaselinePretrain", state, evaluate=True)
+
+
+def s2m2_train(world: World, state=None, steps: int = 2) -> Dict[str, Any]:
+    """S2M2's flat steps (input mixup over the whole batch, the four flips):
+    the losses, the states and each step's mixed rows and partner targets,
+    gathered in rank order."""
+    mixed: List[torch.Tensor] = []
+
+    def spy(method):
+        mix = method.mix
+
+        def recorded(x, y):
+            lam, rows, partners = mix(x, y)
+            mixed.append(torch.cat([gather_rows(rows, world).flatten(1),
+                                    gather_rows(partners, world)[:, None].to(rows)], 1).cpu())
+            return lam, rows, partners
+
+        method.mix = recorded
+
+    out = _train(world, flat_config("S2M2"), flat_batches(steps), state, prepare=spy)
+    out["mixed"] = mixed
+    return out
+
+
+def _no_dropout(method) -> None:
+    """Every Dropout of ``method`` the identity: over several ranks each
+    rank draws masks of its own (``layers.seed_dropout``)."""
+    from .models.backbones.layers import Dropout
+
+    for m in method.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+
+
+FEAT = {"name": "FEAT", "kwargs": {"temperature": 1.0, "temperature2": 1.0, "balance": 0.5,
+                                   "mode": "euclidean"}}
+
+
+def metal_head(per_step: bool) -> Dict[str, Any]:
+    """MeTAL with 2 inner steps, the default loss nets or ``per_step_adapters``
+    (the JAX package's mesh tests' cell)."""
+    return {"name": "MeTAL", "kwargs": {"inner_param": {
+        "lr": 0.01, "train_iter": 2, "test_iter": 2, "per_step_adapters": per_step},
+        "way_num": 3}}
+
+
+#: FEAT's SGD learning rate: its first loss is 6.6 (euclidean logits of ~3e2
+#: at temperature 1), and a step at the cell's 0.05 (or at 0.005) makes the
+#: second step ill-conditioned: on one rank, input rows moved by 1e-7 of
+#: themselves move the parameters after it by 0.95 of the limits at 0.005,
+#: by 4e-4 of them at 5e-4
+FEAT_LR = 5e-4
+
+
+def feat_config(**over) -> Dict[str, Any]:
+    """FEAT on the cell's map (its attention 384 wide) at SGD ``FEAT_LR``."""
+    return proto_config(classifier=copy.deepcopy(FEAT),
+                        optimizer={"name": "SGD", "kwargs": {"lr": FEAT_LR}}, **over)
+
+
+def feat_train(world: World, state=None, steps: int = 2) -> Dict[str, Any]:
+    """FEAT's two SGD steps of 8 episodes (Dropout the identity) and the
+    eval logits."""
+    batches = episode_batches(steps)
+    return _train(world, feat_config(), batches, state, eval_batch=batches[0],
+                  prepare=_no_dropout)
+
+
+def metal_train(world: World, per_step: bool = False, state=None,
+                steps: int = 2) -> Dict[str, Any]:
+    """MeTAL on the cell (second-order inner loops of all episodes at once):
+    two SGD steps and the eval logits, by default or ``per_step``."""
+    batches = episode_batches(steps)
+    return _train(world, proto_config(classifier=metal_head(per_step)), batches, state,
+                  eval_batch=batches[0])
+
+
+def trainer_config(root: str, head: str = "Baseline", **over) -> Dict[str, Any]:
+    """A flat ``Trainer`` cell under ``root``: ``head`` on Conv64F's map at
+    the cell's segments, a ``synthetic:4:4`` root (16 train clips: an epoch
+    of 2 flat steps of 8), val and test 3 episodes of 3-way 2-shot 2-query
+    (clips of up to 2 segments), one step each: 3 episodes do not split
+    over 2 ranks."""
+    cfg = flat_config(head, data_root="synthetic:4:4", result_root=root, epoch=1,
+                      test_episode=3, test_episode_size=3, max_segments_per_clip=2,
+                      segment_bucket_sizes=[16], prefetch=0, log_interval=1)
+    cfg["classifier"]["kwargs"]["num_class"] = 4
+    cfg.update(over)
+    return cfg
+
+
+@contextlib.contextmanager
+def _no_tensorboard():
+    """The ``Trainer``'s TensorBoard writer disabled on every rank (the dry
+    run reads no event file, and importing tensorboard takes seconds)."""
+    from . import train
+    from .utils.meters import TensorboardWriter
+
+    saved = train.TensorboardWriter
+    train.TensorboardWriter = lambda log_dir, enabled=True: TensorboardWriter(log_dir, False)
+    try:
+        yield
+    finally:
+        train.TensorboardWriter = saved
+
+
+def _trainer(world: World, cfg: Dict[str, Any], state: Optional[str] = None):
+    from .train import Trainer
+
+    with _no_tensorboard():
+        trainer = Trainer(0, copy.deepcopy(cfg), device=world.device)
+    if state:
+        trainer.method.load_state_dict(torch.load(state, map_location="cpu"))
+    _no_dropout(trainer.method)
+    return trainer
+
+
+def trainer_train(world: World, cfg: Dict[str, Any], state: Optional[str] = None
+                  ) -> Dict[str, Any]:
+    """``Trainer.train_loop`` of a cell (from ``state`` when given; Dropout
+    the identity): each epoch's train losses and val / test accuracy."""
+    trainer = _trainer(world, cfg, state)
+    trainer.train_loop()
+    return {"history": [{k: r[k] for k in ("train_losses", "val_acc", "test_acc")}
+                        for r in trainer.history]}
+
+
+def replicated_eval(world: World, root: str) -> Dict[str, Any]:
+    """Baseline's val and test passes through ``Trainer._validate`` at 3
+    episodes a step (replicated over 2 ranks): each pass's per-episode
+    accuracies, mean and CI."""
+    from . import train
+
+    trainer = _trainer(world, trainer_config(root))
+    accs: List[List[float]] = []
+    summary = train.mean_confidence_interval
+
+    def recorded(values):
+        accs.append(list(values))
+        return summary(values)
+
+    train.mean_confidence_interval = recorded
+    try:
+        passes = [trainer._validate(0, trainer.val_loader[0], trainer.val_bank),
+                  trainer._validate(0, trainer.test_loader[0], trainer.test_bank)]
+    finally:
+        train.mean_confidence_interval = summary
+    return {"episode_accs": accs, "passes": passes}
+
+
+def ifsl_featuring(world: World, root: str) -> Dict[str, Any]:
+    """IfslPretrain's featuring pass (``Trainer.run_featuring``) on the
+    cell's root: the per-class sums and counts over the epoch's flat
+    batches (each rank's shard, added over the ranks) and the saved
+    means."""
+    cfg = trainer_config(root, "IfslPretrain")
+    feature_path = os.path.join(root, "ifsl_features.npy")
+    cfg["classifier"]["kwargs"]["ifsl_pretrain_param"] = {
+        "norm": True, "featuring": True, "feature_path": feature_path}
+    trainer = _trainer(world, cfg)
+    sums, counts, steps = trainer.featuring_sums()
+    trainer.run_featuring()
+    if world.size > 1:
+        dist.barrier()  # rank 0 has written the means
+    return {"sums": sums.cpu(), "counts": counts.cpu(), "steps": steps,
+            "means": torch.from_numpy(np.load(feature_path))}
+
+
 def tta_config(root: str = "synthetic:10:12", **over) -> Dict[str, Any]:
     """A small DeepBDC eval with the energy-OOD TTA (``reduce_dim`` 8,
     [1, 32, 40], 5-way 5-shot 3-query, ragged clips of up to 3 segments, 4
@@ -314,7 +533,10 @@ SCENARIOS: Dict[str, Callable[..., Dict[str, Any]]] = {
     "proto_train": proto_train, "batchnorm": batchnorm, "ragged_eval": ragged_eval,
     "flagship_train": flagship_train, "dual_train": dual_train, "tta_eval": tta_eval,
     "maml_train": maml_train, "cpea_train": cpea_train, "divisibility": divisibility,
-    "head_step": head_step,
+    "head_step": head_step, "flat_train": flat_train,
+    "pretrain_train": pretrain_train, "s2m2_train": s2m2_train, "feat_train": feat_train,
+    "metal_train": metal_train, "trainer_train": trainer_train,
+    "replicated_eval": replicated_eval, "ifsl_featuring": ifsl_featuring,
 }
 
 
@@ -434,7 +656,20 @@ def default_plan(root: str) -> Dict[str, Dict[str, Any]]:
     save_model_best(root, build_method(cfg))
     return {"proto_train": {}, "batchnorm": {}, "ragged_eval": {}, "flagship_train": {},
             "dual_train": {}, "tta_eval": {"cfg": cfg, "result_path": root},
-            "maml_train": {}, "cpea_train": {}}
+            "maml_train": {}, "cpea_train": {}, **FLAT_PLAN, **flat_root_plan(root)}
+
+
+#: the flat family's, FEAT's and MeTAL's scenarios that need no files
+FLAT_PLAN = {"flat_train": {"evaluate": True}, "pretrain_train": {}, "s2m2_train": {},
+             "feat_train": {}, "metal_train": {}, "metal_train:per_step": {"per_step": True}}
+
+
+def flat_root_plan(root: str) -> Dict[str, Dict[str, Any]]:
+    """The scenarios that run a ``Trainer`` on a synthetic root, their
+    result directories under ``root``: the replicated eval and IFSL's
+    featuring pass."""
+    return {"replicated_eval": {"root": os.path.join(root, "replicated")},
+            "ifsl_featuring": {"root": os.path.join(root, "featuring")}}
 
 
 def main(argv=None) -> int:

@@ -68,9 +68,10 @@ class MethodBase(nn.Module):
     #: descriptor heads) instead of flattening them
     needs_feature_map = False
     #: audited to compute over several ranks what it computes over one: its
-    #: loss is a mean over equally sharded episodes, and each reduction over
-    #: the episode axis (the backbone's BatchNorm moments, ``ood_topk``, the
-    #: calibration quantiles) is taken over all ranks.  ``Trainer`` and
+    #: loss is a mean over equally sharded episodes (or flat rows), and each
+    #: reduction over that axis (the backbone's BatchNorm moments,
+    #: ``ood_topk``, the calibration quantiles, S2M2's mixup partners) is
+    #: taken over all ranks.  ``Trainer`` and
     #: ``Test`` refuse any other method at a world larger than one
     shardable = False
 

@@ -15,6 +15,14 @@ The attention is as wide as the features: 12800 for the flat resnet12 at
 so; ``hdim`` is accepted and not read).  torch infers no shapes, so the
 width comes from ``map_shape`` (c·h·w).  Parameters carry the reference
 names ``slf_attn.w_qs`` / ``w_ks`` / ``w_vs`` / ``fc`` / ``layer_norm``.
+
+Over several ranks (``parallel``) each rank takes its shard of a step's
+episodes.  Both terms of the loss are per-episode work averaged over equal
+counts: the episodic CE over the valid query segments (a train batch's are
+all valid, ``way · query`` an episode) and the regulariser's CE over each
+episode's ``way · (shot + query)`` members, so the ranks' mean gradient is
+the whole step's and no count needed making global.  Only the attention's
+Dropout masks are drawn per rank (``layers.seed_dropout``).
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ class FEAT(MethodBase):
 
     model_type = ModelType.METRIC
     needs_map_shape = True
+    shardable = True
 
     def __init__(self, emb_func, map_shape: Sequence[int], hdim: int = 64,
                  temperature: float = 1.0, temperature2: float = 1.0, balance: float = 0.5,

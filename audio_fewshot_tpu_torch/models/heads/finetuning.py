@@ -35,6 +35,18 @@ the class logits at the targets four times + α·the mean sigmoid BCE of
 ``rot_classifier`` (over the class logits) against the flip's index.  Its
 generation 1 and RFSModel's distillation need a teacher, which only
 ``set_teacher`` gives (no entry point sets one, in either package).
+
+Over several ranks (``parallel``) each rank takes its contiguous shard of a
+flat batch.  ``flat_features`` runs the backbone inside ``sharded_rows``,
+so train-mode BatchNorm takes its moments over every rank's rows (SKDModel's
+flip copies included: the moments are sums, whatever the rows' order);
+eval-mode calls (the teacher, the featuring pass) read running statistics,
+which the mark leaves alone.  Every loss of the family, the pretrainers'
+too, is a mean over this rank's rows, equal in number on every rank, so
+the mean of the ranks' gradients is the whole batch's and no count needed
+making global.  S2M2's mixup and IfslPretrain's featuring sums span the
+whole batch: both gather or sum over the ranks (``pretrains.S2M2.mix``,
+``Trainer.featuring_sums``).
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, FlatBatch
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType
 from ..init import dense
@@ -242,6 +255,9 @@ def _normalize_probe_features(f: torch.Tensor) -> torch.Tensor:
 
 class FinetuningBase(MethodBase):
     model_type = ModelType.FINETUNING
+    #: every flat loss of the family is a mean over equal shards (the
+    #: module docstring)
+    shardable = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True
     #: the global head's kind, in training and in the eval adaptation:
@@ -278,7 +294,10 @@ class FinetuningBase(MethodBase):
         object.__setattr__(self, "teacher", teacher)
 
     def flat_features(self, x: torch.Tensor) -> torch.Tensor:
-        feats = self.emb_func(x)
+        """The backbone's flat features of ``x`` (a flat batch, or copies of
+        one: its rows span the ranks)."""
+        with sharded_rows():
+            feats = self.emb_func(x)
         return _wide(feats.reshape(feats.shape[0], -1))
 
     def global_logits(self, feats: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,15 @@ episodes adapt together, each its own ``[E, way, D]`` copy of the head
 1e-12) over a whole state array; the query state is normalised over the
 real rows only (``_normalize_rows``), so bucket padding changes no real
 row's logits.
+
+Over several ranks (``parallel``) each rank takes its shard of a step's
+episodes.  The inner objective is a sum over episodes, but each episode's
+fast head is its own copy, so each inner gradient reads its episode's term
+alone; the state's normalisations are per episode, and the base weights'
+means of the per-step path are the same on every rank.  The outer loss is
+the mean CE over the valid query segments, all valid and as many in every
+episode of a train batch, so the ranks' mean gradient is the whole step's
+and no count needed making global.
 """
 
 from __future__ import annotations
@@ -158,6 +167,7 @@ class PerStepLossAdapter(nn.Module):
 @CLASSIFIERS.register("MeTAL")
 class MeTAL(MethodBase):
     model_type = ModelType.META
+    shardable = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True
 

@@ -34,7 +34,10 @@ only ``set_teacher`` gives.
   Both calls start from the step's BN statistics and DropBlock counters,
   and only the second's updates stay, as in the JAX package (one momentum
   update a step, by the flipped batch).  Validation adapts the cosine head,
-  as BaselinePlus.
+  as BaselinePlus.  Over several ranks the permutation spans the whole flat
+  batch (rank 0's draw on every rank) and each rank takes its rows'
+  partners from the gathered batch (``S2M2.mix``), so every rank mixes the
+  rows one rank mixes.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, FlatBatch
+from ...parallel.collectives import gather_rows, sharded_rows, sharded_world
 from ...registry import CLASSIFIERS
 from ..backbones.layers import _SeededNoise
 from ..base import EpisodeSetting, LossOutput
@@ -182,7 +186,8 @@ class FRNPretrain(FinetuningBase):
 
     def loss(self, batch: FlatBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
         flat_only(batch)
-        rows = self._rows(self.emb_func(batch.data))
+        with sharded_rows():
+            rows = self._rows(self.emb_func(batch.data))
         n, hw, c = rows.shape
         layer = self.frn_layer
         dist = frn_recon_dist(rows.reshape(1, n * hw, c), layer.cat_mat[None],
@@ -257,17 +262,31 @@ class S2M2(FinetuningBase):
     def backbone_rows(self, batch_size: int) -> int:
         return 5 * batch_size
 
+    @torch.no_grad()
+    def mix(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[float, torch.Tensor, torch.Tensor]:
+        """λ, the mixed rows λ·x + (1 − λ)·x[perm] and the partners'
+        targets y[perm] of this rank's rows, λ and perm drawn for the whole
+        flat batch.  Over several ranks the partners come from the batch
+        gathered in rank order: the data take no gradient, and gathering
+        on the device works on bank rows too, which the host never holds."""
+        world = sharded_world()
+        x_all, y_all = gather_rows(x, world), gather_rows(y, world)
+        lam, perm = self.mixup.draw(x_all.shape[0])
+        perm = torch.from_numpy(np.array(perm, dtype=np.int64)).to(x.device)
+        if world is not None:
+            perm = perm[world.rows(perm.shape[0])]
+        return lam, lam * x + (1.0 - lam) * x_all[perm], y_all[perm]
+
     def loss(self, batch: FlatBatch, setting: EpisodeSetting) -> Tuple[torch.Tensor, LossOutput]:
         flat_only(batch)
         x, y = batch.data, batch.target
         b = x.shape[0]
-        lam, perm = self.mixup.draw(b)
-        perm = torch.from_numpy(np.array(perm, dtype=np.int64)).to(x.device)
+        lam, mixed, y_perm = self.mix(x, y)
         # the second call starts from the statistics the first started from
         with restored_buffers(self.emb_func):
-            logits_mix = self.global_logits(self.flat_features(lam * x + (1.0 - lam) * x[perm]))
+            logits_mix = self.global_logits(self.flat_features(mixed))
         loss_mm = lam * cross_entropy(logits_mix, y) + (1.0 - lam) * cross_entropy(
-            logits_mix, y[perm])
+            logits_mix, y_perm)
         flips = torch.cat([x, torch.flip(x, (-1,)), torch.flip(x, (-2,)), torch.flip(x, (-2, -1))])
         feats = self.flat_features(flips)
         logits = self.global_logits(feats)

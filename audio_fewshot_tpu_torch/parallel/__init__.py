@@ -6,8 +6,9 @@ and BatchNorm moments and every other reduction over the episode axis
 taken over all ranks, so that N ranks compute what one computes.
 ``launch`` starts the ranks of a run on one host."""
 
-from .collectives import (World, all_reduce_gradients, all_reduce_mean,
-                          all_reduce_sum, gather_rows, replicate, rows_sharded, sharded_rows)
+from .collectives import (World, all_reduce_gradients, all_reduce_mean, all_reduce_sum,
+                          gather_rows, replicate, replicated_rows, rows_sharded, sharded_rows,
+                          sharded_world)
 from .mesh import (get_mesh, maybe_init_distributed, resolve_transfer_dtype, shard_batch,
                    transfer_ahead)
 
@@ -20,9 +21,11 @@ __all__ = [
     "get_mesh",
     "maybe_init_distributed",
     "replicate",
+    "replicated_rows",
     "resolve_transfer_dtype",
     "rows_sharded",
     "shard_batch",
     "sharded_rows",
+    "sharded_world",
     "transfer_ahead",
 ]

@@ -2,8 +2,10 @@
 alone (the backbones' BatchNorm imports them, so this module imports
 nothing else of the package): the run's ``World``, parameters broadcast
 from rank 0, the gradients' mean over the ranks, an ordered gather of
-per-episode rows, a differentiable sum over the ranks, and the
-``sharded_rows`` mark of calls whose batch axis spans the ranks.
+per-episode rows, a differentiable sum over the ranks, the
+``sharded_rows`` mark of calls whose batch axis spans the ranks, and the
+``replicated_rows`` mark of passes in which every rank holds the whole
+batch.
 """
 
 from __future__ import annotations
@@ -129,6 +131,7 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
 # -- rows that span the ranks ----------------------------------------------------------------
 
 _sharded_depth = 0
+_replicated_depth = 0
 
 
 @contextlib.contextmanager
@@ -146,7 +149,31 @@ def sharded_rows():
         _sharded_depth -= 1
 
 
+@contextlib.contextmanager
+def replicated_rows():
+    """Marks a pass in which every rank holds the whole batch (the
+    ``Trainer``'s replicated eval of a batch that does not split over the
+    ranks): inside it no call's rows span the ranks, so nothing is summed
+    or gathered over them."""
+    global _replicated_depth
+    _replicated_depth += 1
+    try:
+        yield
+    finally:
+        _replicated_depth -= 1
+
+
+def sharded_world() -> Optional[World]:
+    """This rank's place among the ranks whose rows make up one batch: the
+    process group's rank and size, or None with one rank or inside
+    ``replicated_rows``."""
+    if (_replicated_depth or not (dist.is_available() and dist.is_initialized())
+            or dist.get_world_size() == 1):
+        return None
+    return World(dist.get_rank(), dist.get_world_size())
+
+
 def rows_sharded() -> bool:
-    """True inside ``sharded_rows`` in a run of more than one rank."""
-    return (_sharded_depth > 0 and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
+    """True inside ``sharded_rows`` in a run of more than one rank (and not
+    inside ``replicated_rows``)."""
+    return _sharded_depth > 0 and sharded_world() is not None

@@ -29,14 +29,22 @@ moments span the ranks, the augmentation values are drawn for the whole
 step and sliced, the gradients are averaged over the ranks in one
 all-reduce before the optimizer step, and the validation accuracies are
 gathered in rank order, so the run computes what one rank computes (but for
-Dropout and DropBlock masks, drawn per rank).  Rank 0 alone writes the
-checkpoints, TensorBoard, the profiler trace and the log file.  A method
-not audited for it (``MethodBase.shardable``) raises at a world above one.
+Dropout and DropBlock masks, drawn per rank).  The world size must divide
+the training batch's axis (a FINETUNING method's ``batch_size``, else
+``episode_size``); an eval step whose episodes do not split over the ranks
+runs replicated, every rank computing all of them.  IfslPretrain's featuring
+sums are added over the ranks.  Rank 0 alone writes the checkpoints,
+TensorBoard (with ``log_paramerter``, a histogram of each parameter every
+``log_interval`` steps), the profiler trace, the log file and the
+featuring means.  A method not audited for it (``MethodBase.shardable``)
+raises at a world above one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -44,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.nn.modules.batchnorm import _BatchNorm
 
 from .config import Config, save_config
 from .data import FlatLoader, get_dataloader, get_mean_std
@@ -59,7 +68,7 @@ from .models.init import init_weights
 from .ops.audio_augmentations import augment_batch_one_type
 from .optim import LRScheduler, Optimizer, build_optimizer, build_scheduler
 from .parallel import (World, all_reduce_gradients, all_reduce_mean, gather_rows,
-                       maybe_init_distributed, replicate, shard_batch)
+                       maybe_init_distributed, replicate, replicated_rows, shard_batch)
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.checkpoint import LAST, SaveType, load_last, load_part, save_model
 from .utils.meters import AverageMeter, TensorboardWriter
@@ -95,6 +104,20 @@ def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
         "optimizer": {"name": "Adam", "kwargs": {"lr": 0.005}, "other": None},
         "lr_scheduler": {"name": "CosineAnnealingLR", "kwargs": {"T_max": 100, "eta_min": 0}},
     }).get_config_dict()
+
+
+def train_divisors(config: Dict[str, Any], method: MethodBase) -> Dict[str, Any]:
+    """The knobs the world size must divide: the training batch's axis, a
+    FINETUNING method's flat ``batch_size`` (its ``episode_size`` sizes
+    nothing), else ``episode_size`` (and a dual loader's ``batch_size``).
+    Eval steps that do not split run replicated (``Trainer._validate``), as
+    the JAX ``Trainer`` sizes its mesh."""
+    if method.model_type == ModelType.FINETUNING:
+        return {"batch_size": config.get("batch_size", 128)}
+    divisors = {"episode_size": config.get("episode_size", 1)}
+    if int(config.get("dataloader_num", 1)) > 1:
+        divisors["batch_size"] = config.get("batch_size", 128)
+    return divisors
 
 
 def sharded_train_step(method: MethodBase, optimizer: Optimizer, batch, setting,
@@ -141,12 +164,8 @@ class Trainer:
         self.seed = int(config.get("seed", 0))
         init_seed(self.seed, config.get("deterministic"))  # the initial weights
         self.method: MethodBase = build_method(config)
-        divisors = {"episode_size": config.get("episode_size", 1),
-                    "test_episode_size": config.get("test_episode_size")}
-        if (self.method.model_type == ModelType.FINETUNING
-                or int(config.get("dataloader_num", 1)) > 1):
-            divisors["batch_size"] = config.get("batch_size", 128)
-        self.world = world_for(config, self.method, self.device, divisors)
+        self.world = world_for(config, self.method, self.device,
+                               train_divisors(config, self.method))
         self.device = self.world.device
         if self.world.size > 1:
             self.logger.info("world: %d ranks (%s), this rank %d on %s", self.world.size,
@@ -242,11 +261,18 @@ class Trainer:
 
     # -- steps --------------------------------------------------------------
 
-    def _device_batch(self, host_batch, bank):
+    def _splits(self, host_batch) -> bool:
+        """Whether a host batch's leading (episode) axis splits over the
+        ranks."""
+        lead = getattr(host_batch, dataclasses.fields(host_batch)[0].name)
+        return lead.shape[0] % self.world.size == 0
+
+    def _device_batch(self, host_batch, bank, replicated: bool = False):
         """This rank's shard of an ``EpisodeBatch``, ``FlatBatch`` or
-        ``DualBatch`` on the device (gathered from ``bank`` when the loaders
-        emit bank rows)."""
-        batch = shard_batch(host_batch, self.world, self.transfer_dtype)
+        ``DualBatch`` on the device, or with ``replicated`` the whole batch
+        (gathered from ``bank`` when the loaders emit bank rows)."""
+        batch = shard_batch(host_batch, None if replicated else self.world,
+                            self.transfer_dtype, self.device)
         if bank is not None:
             if isinstance(host_batch, DualBatch):
                 materialize = materialize_dual_batch
@@ -316,23 +342,18 @@ class Trainer:
     # -- loops --------------------------------------------------------------
 
     @torch.no_grad()
-    def run_featuring(self) -> Tuple[float, float]:
-        """IFSL's featuring pass (IfslPretrain with
-        ``ifsl_pretrain_param.featuring``): one eval-mode pass over the flat
-        train loader's epoch 0, the per-class sums and counts of the
-        backbone's flat features (``IfslPretrain.class_sums``, with its
-        ``norm``), their means written to ``feature_path`` with ``np.save`` as
-        float32 ``[num_class, D]`` (unseen classes: zero rows, warned), and
-        a LAST checkpoint of the unchanged weights with its ``save_part``
-        files.  The parameters never move, so no epoch loop."""
-        feature_path = getattr(self.method, "feature_path", None)
-        if not feature_path:
-            raise ValueError("featuring: true requires ifsl_pretrain_param.feature_path")
+    def featuring_sums(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """The featuring pass's per-class sums ``[num_class, D]`` and counts
+        ``[num_class]`` of the backbone's flat features (eval mode;
+        ``IfslPretrain.class_sums`` with its ``norm``) over the flat train
+        loader's epoch 0, and its steps.  Over several ranks each rank sums
+        its shard of every batch and the sums are then added over the
+        ranks, so every rank holds the whole epoch's."""
         self.method.eval()
         num_class = self.method.num_class
         sums = torch.zeros((num_class, self.method.feat_dim), device=self.device)
         counts = torch.zeros((num_class,), device=self.device)
-        t0, steps = time.time(), 0
+        steps = 0
         for host_batch in self.train_loader[0].epoch(0):
             batch = self._device_batch(host_batch, self.train_bank)
             step_sums, step_counts = self.method.class_sums(batch.data, batch.target,
@@ -340,18 +361,39 @@ class Trainer:
             sums += step_sums
             counts += step_counts
             steps += 1
+        if self.world.size > 1:
+            dist.all_reduce(sums)
+            dist.all_reduce(counts)
+        return sums, counts, steps
+
+    @torch.no_grad()
+    def run_featuring(self) -> Tuple[float, float]:
+        """IFSL's featuring pass (IfslPretrain with
+        ``ifsl_pretrain_param.featuring``): ``featuring_sums``, their means
+        written to ``feature_path`` with ``np.save`` as float32
+        ``[num_class, D]`` (unseen classes: zero rows, warned), and a LAST
+        checkpoint of the unchanged weights with its ``save_part`` files,
+        both by rank 0.  The parameters never move, so no epoch loop."""
+        feature_path = getattr(self.method, "feature_path", None)
+        if not feature_path:
+            raise ValueError("featuring: true requires ifsl_pretrain_param.feature_path")
+        num_class = self.method.num_class
+        t0 = time.time()
+        sums, counts, steps = self.featuring_sums()
         means = (sums / counts.clamp(min=1.0)[:, None]).cpu().numpy().astype(np.float32)
-        os.makedirs(os.path.dirname(os.path.abspath(feature_path)), exist_ok=True)
-        np.save(feature_path, means)
+        if self.rank == 0:
+            os.makedirs(os.path.dirname(os.path.abspath(feature_path)), exist_ok=True)
+            np.save(feature_path, means)
         covered = int((counts > 0).sum())
         self.logger.info("featuring: %d steps, %d/%d classes covered -> %s (%.1f s)", steps,
                          covered, num_class, feature_path, time.time() - t0)
         if covered < num_class:
             self.logger.warning("featuring: %d classes unseen in the train split keep all-zero "
                                 "feature rows", num_class - covered)
-        save_model(self.ckpt_dir, self.method, 0, SaveType.LAST,
-                   train_state={"best_val_acc": -1.0, "best_test_acc": -1.0},
-                   save_part=self.config.get("save_part") or [])
+        if self.rank == 0:
+            save_model(self.ckpt_dir, self.method, 0, SaveType.LAST,
+                       train_state={"best_val_acc": -1.0, "best_test_acc": -1.0},
+                       save_part=self.config.get("save_part") or [])
         self.writer.close()
         return self.best_val_acc, self.best_test_acc
 
@@ -431,6 +473,8 @@ class Trainer:
             meter.update("batch_time", time.time() - t_end)
             t_end = time.time()
             if step % log_interval == 0:
+                if cfg.get("log_paramerter") and self.rank == 0:
+                    self._log_param_histograms()
                 self.logger.info(
                     "Epoch-({}): [{}/{}]\tTime {:.3f} ({:.3f})\tCalc {:.3f} ({:.3f})\t"
                     "Data {:.3f} ({:.3f})\tLoss {:.3f} ({:.3f})\tAcc@1 {:.3f} ({:.3f})".format(
@@ -453,6 +497,23 @@ class Trainer:
         else:
             record["train_eps"] = len(losses) * episode_size / max(wall, 1e-9)
         return meter.avg("loss")
+
+    def _log_param_histograms(self) -> None:
+        """``log_paramerter: true``: a TensorBoard histogram of every
+        parameter at every ``log_interval`` step, tagged with its name's
+        dots as slashes, as float32, but for BatchNorm's (the parameters of
+        a BatchNorm module, and any name with a part holding "bn" or
+        "batchnorm", as the JAX ``Trainer`` filters its flax names)."""
+        skip = {f"{module_name}.{name}" if module_name else name
+                for module_name, module in self.method.named_modules()
+                if isinstance(module, _BatchNorm)
+                for name, _ in module.named_parameters(recurse=False)}
+        for name, param in self.method.named_parameters():
+            parts = [part.lower() for part in name.split(".")]
+            if name in skip or any("bn" in part or "batchnorm" in part for part in parts):
+                continue
+            self.writer.add_histogram(name.replace(".", "/"),
+                                      param.detach().float().cpu().numpy())
 
     def _profile_window(self) -> Optional[Tuple[int, int]]:
         """The traced steps [start, stop) of epoch 0, or None."""
@@ -484,16 +545,25 @@ class Trainer:
 
     @torch.no_grad()
     def _validate(self, epoch: int, loader, bank=None) -> Tuple[float, float]:
+        """A val or test pass: the mean per-episode accuracy and its 95 % CI.
+        Over several ranks a step whose episodes split over them is
+        sharded, its accuracies gathered in rank order; one whose episodes
+        do not (a FINETUNING run's ranks divide its ``batch_size``, not its
+        ``test_episode_size``) runs replicated: every rank computes every
+        episode, as the JAX ``Trainer`` does, and nothing is gathered."""
         self.writer.set_step(epoch)
         self.method.eval()
-        pending = []
+        pending = []  # (a step's accuracies, whether they are this rank's shard)
         for host_batch in loader.epoch(epoch):
-            batch = self._device_batch(host_batch, bank)
-            seg_logits = self.method(batch, self.eval_setting)
-            pending.append(self.method.eval_episode_accuracy(seg_logits, batch))
-        # one host sync per pass; over several ranks each step's accuracies
-        # in rank order, the order one rank gives them in
-        pending = [gather_rows(acc, self.world) for acc in pending]
+            sharded = self._splits(host_batch)
+            batch = self._device_batch(host_batch, bank, replicated=not sharded)
+            with contextlib.nullcontext() if sharded else replicated_rows():
+                seg_logits = self.method(batch, self.eval_setting)
+            pending.append((self.method.eval_episode_accuracy(seg_logits, batch), sharded))
+        # one host sync per pass; a sharded step's accuracies in rank order,
+        # the order one rank gives them in
+        pending = [gather_rows(acc, self.world) if sharded else acc
+                   for acc, sharded in pending]
         accs = torch.cat(pending).cpu().tolist() if pending else []
         mean, ci = mean_confidence_interval(accs)
         self.eval_meter.update("acc", mean)

@@ -205,9 +205,14 @@ Phases (any failure ends the script with a non-zero exit code):
    controls over the gloo ranks (no gradient all-reduce; BatchNorm moments
    per rank) that the first-step limits must catch, the gradient
    all-reduce's and the small all-reduces' share of a step timed between
-   syncs, the shipped bf16 train step's ms with ``deterministic`` true and
-   false, and phases 9 and 11's eval with and without
-   ``parallel.transfer_ahead``.
+   syncs; and the flat family over ranks: ``deepbdc_pretrain_5shot_iid_seed0``
+   at full width (2 flat steps of the shipped 128, 64 rows a rank over 2,
+   float32, SGD; both BDC kernels at (64, 64, 304) on each rank, which phases
+   3 and 6 check; its val and test at the shipped one episode a step,
+   replicated over 2 ranks), held at the flagship's limits with its flat step
+   ms printed, and the dry run's Baseline, MetabaselinePretrain, S2M2 (its
+   mixed rows), FEAT, MeTAL (both loss-net paths), a ``Trainer``'s replicated
+   eval and IfslPretrain's featuring sums at its own limits.
 
 To keep the script inside its time limit with phases 23-24, phase 15's
 eval cut (phases 15 and 20-24) is one epoch of 32 test episodes, not 64,
@@ -216,7 +221,10 @@ and 21 take ``CPU_QUERIES`` (16) query segments, as phase 22's; with phase
 25, phase 15 evaluates four of its six heads (MetaBaselineKendall's and
 FEAT's eval, 25.6 s and 43.1 s of its 100.1 s on an H100 80GB HBM3 at 700
 W, left out; phase 16 trains both), ``EVAL_CUT`` is one epoch of 128 test
-episodes and ``HEAD_TRAIN_CUT`` one epoch of 10 train episodes.
+episodes and ``HEAD_TRAIN_CUT`` one epoch of 10 train episodes; with the
+flat family's cells, phase 25 no longer times the bf16 step with and
+without ``deterministic`` nor phases 9 and 11's eval with and without
+``transfer_ahead`` (both settled: 47.48 / 46.71 ms, and within +-5 %).
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -335,6 +343,9 @@ FLAT_EVAL_EPISODES = 4
 FLAT_CHECK_ROWS = 32
 # phase 20's flat training batch through resnet12Bdc's BDC pool
 FLAT_SHAPE = (128, 64, 304)
+# phase 25's DeepBDC_Pretrain flat batch of 128 over 2 ranks: each rank's
+# shard through both BDC kernels
+RANK_FLAT_SHAPE = (64, 64, 304)
 # phase 21: the last pretrainers and RENet, with the features each reads
 SLICE11_FEATURES = {
     "FRN_Pretrain": "resnet12's [640, 8, 9] map; 25 x 72 rows of cat_mat in training",
@@ -423,8 +434,19 @@ PARALLEL_ACC_MAX, PARALLEL_ACC_MEAN = 2.0, 0.5
 # eval logits rtol 1e-3 / atol 1e-2
 PROTO_LIMITS = {"first_loss": 1e-6, "losses": 2e-5, "state": (1e-3, 5e-4),
                 "logits": (1e-3, 1e-2)}
-DETERMINISTIC_STEPS = 10
 PARALLEL_TIMEOUT_S = 300
+# phase 25's full-width flat cell: deepbdc_pretrain_5shot_iid_seed0
+# (resnet12Bdc, planes 64/160/320/640, reduce_dim 64) trained 2 flat steps
+# of the shipped batch_size 128 (64 rows a rank over 2 ranks) on a
+# synthetic:25:15 root (375 train clips: 2 batches of 128; val and test
+# need 15 clips a class for 5 shots and 10 queries), float32 with
+# TF32 off, SGD at lr 0.005 (the flagship cell's, for its reasons), held
+# at the flagship's limits; val and test 2 episodes each at the shipped
+# episode_size 1, one a step, which 2 ranks run replicated; 2 more timed
+# warm steps (``collective_times``)
+PRETRAIN_ROOT = "synthetic:25:15"
+PRETRAIN_CUT = {"epoch": 1, "test_episode": 2}
+PRETRAIN_TIMED_STEPS = 2
 
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
@@ -566,17 +588,6 @@ def tta_cell() -> dict:
     cfg.update(enhance_classification_via_energy=True, num_augmentations=10,
                tta_segments_per_clip=6)
     return cfg
-
-
-def transfer_ab_cells() -> dict:
-    """Phase 25's ``eval_transfer_ab`` cells: phase 9's ProtoNet eval (2
-    epochs of 4 steps, ≈ 1.5 s a run) with, without, without, with;
-    phase 11's TTA eval (≈ 7 s a run) with, then without."""
-    from audio_fewshot_tpu_torch.eval import slice_config
-
-    return {"phase 9's ProtoNet eval (bf16, 16 episodes a step)": (
-        slice_config(classifier="ProtoNet"), ("with", "without", "without", "with")),
-        "phase 11's TTA eval (bf16, 8 episodes a step)": (tta_cell(), ("with", "without"))}
 
 
 def run_test(cfg):
@@ -1887,39 +1898,6 @@ def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None) -> dict:
             "collectives": collective_times(trainer, timed_steps) if timed_steps else None}
 
 
-def step_times(world, cfg: dict, steps: int = 10, warmup: int = 3) -> dict:
-    """The flagship train step's ms (host clock between device syncs, the
-    mean of ``steps`` after ``warmup``) with cuDNN's deterministic
-    algorithms (``deterministic: true``, every shipped config's) and with
-    autotuning (false), on one ``Trainer``."""
-    import torch
-
-    from audio_fewshot_tpu_torch.train import Trainer
-    from audio_fewshot_tpu_torch.utils.seed import set_deterministic
-
-    trainer = Trainer(0, copy.deepcopy(cfg), device=world.device)
-    trainer.method.train()
-    gen = torch.Generator().manual_seed(2)
-    out = {}
-    for deterministic in (True, False):
-        set_deterministic(deterministic)
-        batches = train_batches(trainer, 0)
-        times = []
-        for i in range(warmup + steps):
-            batch = trainer._device_batch(next(batches), trainer.train_bank)
-            if trainer.augment:
-                batch = trainer._augment_batch(batch, gen)
-            _synchronize(world.device)
-            t0 = time.perf_counter()
-            trainer._train_step(batch)
-            _synchronize(world.device)
-            if i >= warmup:
-                times.append(time.perf_counter() - t0)
-        out[deterministic] = 1e3 * sum(times) / len(times)
-    set_deterministic(bool(cfg.get("deterministic", True)))
-    return out
-
-
 #: phase 25's scenarios beside the dry run's (module-level: the ranks
 #: import this script by name and look them up)
 PARALLEL_SCENARIOS = {"flagship_cell": flagship_cell}
@@ -1931,8 +1909,11 @@ def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
     (``train.slice_config`` at ``PARALLEL_TRAIN_CUT``, 2 episodes a step,
     float32, SGD) and its TTA eval (``eval.slice_config`` at
     ``PARALLEL_EVAL_CUT``, float32) over a random-weight checkpoint from the
-    seed; with ``controls``, the training cell again under each of
-    ``FAULTS``."""
+    seed; the full-width DeepBDC_Pretrain flat cell (``PRETRAIN_CUT``);
+    the dry run's flat, FEAT and MeTAL scenarios (``FLAT_PLAN``, its
+    replicated eval and featuring pass under ``root``); with ``controls``,
+    the flagship's training cell again under each of ``FAULTS``."""
+    from audio_fewshot_tpu_torch import dryrun_multigpu as dry
     from audio_fewshot_tpu_torch import train
     from audio_fewshot_tpu_torch.eval import slice_config
     from audio_fewshot_tpu_torch.models import build_method
@@ -1951,8 +1932,14 @@ def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
     if not os.path.isdir(weights):
         init_seed(int(ecfg["seed"]))
         save_model_best(weights, build_method(ecfg))
+    pretrain = train.slice_config(os.path.join(root, f"{tag}_pretrain"),
+                                  classifier="DeepBDC_Pretrain", **PRETRAIN_CUT)
+    pretrain.update(data_root=PRETRAIN_ROOT, precision="fp32",
+                    optimizer={"name": "SGD", "kwargs": {"lr": 0.005}, "other": None})
     plan = {"proto_train": {}, "flagship_cell": {"cfg": training(tag)},
-            "tta_eval": {"cfg": ecfg, "result_path": weights}}
+            "tta_eval": {"cfg": ecfg, "result_path": weights},
+            "flagship_cell:pretrain": {"cfg": pretrain, "timed_steps": PRETRAIN_TIMED_STEPS},
+            **dry.FLAT_PLAN, **dry.flat_root_plan(os.path.join(root, tag))}
     for fault in FAULTS if controls else ():
         plan[f"flagship_cell:{fault}"] = {"cfg": training(f"{tag}_{fault}"), "timed_steps": 0,
                                           "fault": fault}
@@ -2037,6 +2024,7 @@ def parallel_compare(label: str, many: dict, one: dict) -> None:
             and len(acc) == len(acc_ref) and dacc.max() <= PARALLEL_ACC_MAX
             and dacc.mean() <= PARALLEL_ACC_MEAN):
         raise AssertionError(f"{label} disagrees with the 1-rank run")
+    flat_compare(label, many, one)
     for fault, what in FAULTS.items():
         key = f"flagship_cell:{fault}"
         if key not in many:
@@ -2052,6 +2040,42 @@ def parallel_compare(label: str, many: dict, one: dict) -> None:
             raise AssertionError(f"{label}: the control '{what}' passes the first-step limits")
 
 
+def flat_compare(label: str, many: dict, one: dict) -> None:
+    """The flat family's cells of a run over ranks against the 1-rank run's:
+    the dry run's flat, FEAT, MeTAL, replicated-eval and featuring
+    scenarios at its own limits (``dryrun_multigpu.mismatch``: rtol 1e-3 /
+    atol 5e-4, eval logits atol 1e-2), and the full-width DeepBDC_Pretrain
+    cell at the flagship's (the first loss and every parameter after the
+    first step tightly, the second step loosely; the replicated val and
+    test accuracies within ``PARALLEL_ACC_MAX``); fails past them."""
+    from audio_fewshot_tpu_torch import dryrun_multigpu as dry
+
+    names = [*dry.FLAT_PLAN, *dry.flat_root_plan("")]
+    gaps = {n: dry.mismatch(dry.compared(n, many[n]), dry.compared(n, one[n])) for n in names}
+    print(f"[parallel] {label} against 1 rank, the dry run's flat family, FEAT and MeTAL "
+          f"(each gap as a multiple of its limit: rtol 1e-3 / atol 5e-4, eval logits atol "
+          f"1e-2) { {k: f'{v:.3e}' for k, v in gaps.items()} }; seconds over the ranks "
+          f"{ {k: round(many[k + ':s'], 2) for k in names} }", flush=True)
+    g = flagship_gaps(many["flagship_cell:pretrain"], one["flagship_cell:pretrain"])
+    accs = [(r[k], q[k]) for r, q in zip(many["flagship_cell:pretrain"]["history"],
+                                         one["flagship_cell:pretrain"]["history"], strict=True)
+            for k in ("val_acc", "test_acc")]
+    dacc = max(abs(a - b) for a, b in accs)
+    print(f"[parallel] {label} against 1 rank, DeepBDC_Pretrain/resnet12Bdc at full width (2 "
+          f"flat steps of 128, float32, SGD): losses {[round(v, 6) for v in g['losses']]} "
+          f"against {[round(v, 6) for v in g['ref_losses']]}, rel {[f'{v:.2e}' for v in g['rel']]}"
+          f" (limits {PARALLEL_FIRST_LOSS_RTOL:g} first, {PARALLEL_LOSS_RTOL:g}); every parameter "
+          f"after the first step |Δθ| / |1 rank's first update| {g['first_update']:.3e} (limit "
+          f"{PARALLEL_FIRST_UPDATE_REL:g}), after the last |Δθ| / |1 rank's update| "
+          f"{g['update']:.3e} (limit {PARALLEL_UPDATE_REL:g}; |update| / |θ| "
+          f"{g['update_share']:.3e}); replicated val and test accuracy (ours, 1 rank's) {accs}, "
+          f"max |Δ| {dacc:.3f} (limit {PARALLEL_ACC_MAX:g})", flush=True)
+    if not (max(gaps.values()) <= 1.0 and first_step_held(g)
+            and max(g["rel"]) <= PARALLEL_LOSS_RTOL and g["update"] <= PARALLEL_UPDATE_REL
+            and dacc <= PARALLEL_ACC_MAX):
+        raise AssertionError(f"{label}: the flat family's cells disagree with the 1-rank run")
+
+
 def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
     """One line per run: ranks, backend, wall, train ms a step, eval eps/s;
     the BDC launches summed over the ranks (each rank must launch both, the
@@ -2062,8 +2086,11 @@ def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
     cell, tta = results[0]["flagship_cell"], results[0]["tta_eval"]
     warm = cell["collectives"]["step_ms"]
     losses = [v for r in cell["history"] for v in r["train_losses"]]
+    pre = results[0]["flagship_cell:pretrain"]
+    pre_losses = [v for r in pre["history"] for v in r["train_losses"]]
     values = losses + [cell["history"][-1][k] for k in ("val_acc", "test_acc")] + [
-        tta["mean"], tta["threshold"]] + results[0]["proto_train"]["losses"]
+        tta["mean"], tta["threshold"]] + results[0]["proto_train"]["losses"] + pre_losses + [
+        pre["history"][-1][k] for k in ("val_acc", "test_acc")]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"{label}: non-finite loss, accuracy or threshold")
     print(f"[parallel] {label}: {len(results)} rank(s), {wall:.1f} s wall (start-up, "
@@ -2073,61 +2100,31 @@ def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
           f"eval eps/s {[round(v, 2) for v in tta['eps']]}, accuracy "
           f"{tta['mean']:.3f}, threshold {tta['threshold']:.6f}; launches per rank (bdc_pool, "
           f"bdc_pool_backward) {launches}; {smi}", flush=True)
+    print(f"[parallel] {label}: DeepBDC_Pretrain/resnet12Bdc at full width, a flat step of "
+          f"128 ({128 // len(results)} rows a rank): {pre['history'][0]['step_ms']:.1f} ms a "
+          f"step ({len(pre_losses)} steps, the first cold; loss {pre_losses[0]:.4f} -> "
+          f"{pre_losses[-1]:.4f}), {pre['collectives']['step_ms']:.1f} ms a warm step "
+          f"({PRETRAIN_TIMED_STEPS} more, between syncs; the gradient all-reduce "
+          f"{pre['collectives']['grad_ms']:.1f} ms, the {pre['collectives']['other_calls']} "
+          f"small ones {pre['collectives']['other_ms']:.1f} ms); its training, val and test "
+          f"{pre['wall']:.1f} s, val / test accuracy {pre['history'][-1]['val_acc']:.3f} / "
+          f"{pre['history'][-1]['test_acc']:.3f}; {smi}", flush=True)
     return sum(f for f, _ in launches), sum(b for _, b in launches)
 
 
-def eval_transfer_ab(cells: dict, smi: str) -> tuple:
-    """Each eval cell of ``cells`` (``{label: (config, order)}``) through
-    ``run_test`` with ``parallel.transfer_ahead`` (the next step's shard
-    copied from page-locked memory on a side stream, a drain every
-    ``eval_queue_depth`` steps) and without it (each step copied when it is
-    needed, one drain an epoch: the eval loop before the ``parallel``
-    package), in ``order`` (of "with" and "without"); eps/s per epoch of
-    each run.  Returns the BDC launches of all runs."""
-    from audio_fewshot_tpu_torch import eval as port_eval
-    from audio_fewshot_tpu_torch.parallel import shard_batch
-
-    ahead = port_eval.transfer_ahead
-
-    def when_needed(batches, world, transfer_dtype=None):
-        for b in batches:
-            yield shard_batch(b, world, transfer_dtype)
-
-    forward = backward = 0
-    for label, (cfg, order) in cells.items():
-        eps = {"with": [], "without": []}
-        for mode in order:
-            c = copy.deepcopy(cfg)
-            if mode == "without":
-                port_eval.transfer_ahead = when_needed
-                c["eval_queue_depth"] = 1 << 30
-            try:
-                got, _, _, _, launches = run_test(c)
-            finally:
-                port_eval.transfer_ahead = ahead
-            eps[mode].append([round(v, 2) for v in got])
-            forward, backward = forward + launches[0], backward + launches[1]
-        print(f"[parallel] {label}, eval eps/s per epoch with transfer_ahead {eps['with']}, "
-              f"without (copies when needed, one drain an epoch) {eps['without']} (runs in "
-              f"the order {', '.join(order)}); {smi}", flush=True)
-    return forward, backward
-
-
-def parallel_phase(smi: str, eval_cells: dict) -> tuple:
+def parallel_phase(smi: str) -> tuple:
     """Phase 25: the dry run's ProtoNet cell, the flagship's training cell
-    and its TTA eval on one rank (a 1-rank NCCL group on a 1-card machine),
-    over ``PARALLEL_RANKS`` gloo ranks that share card 0 (with the
-    controls of ``FAULTS``), and, where the machine has several cards,
-    over one NCCL rank a card and over ``PARALLEL_RANKS`` NCCL ranks; each
-    run against the 1-rank one.  Then the shipped bf16 train step's ms with
-    cuDNN's deterministic algorithms and with autotuning, and
-    ``eval_transfer_ab`` of ``eval_cells``.  Returns the BDC launches of
+    and its TTA eval, the full-width DeepBDC_Pretrain flat cell and the dry
+    run's flat family, FEAT and MeTAL on one rank (a 1-rank NCCL group on a
+    1-card machine), over ``PARALLEL_RANKS`` gloo ranks that share card 0
+    (with the controls of ``FAULTS``), and, where the machine has several
+    cards, over one NCCL rank a card and over ``PARALLEL_RANKS`` NCCL
+    ranks; each run against the 1-rank one.  Returns the BDC launches of
     every run (each rank launches both kernels)."""
     import torch
     import torch.distributed as dist
 
     from audio_fewshot_tpu_torch import dryrun_multigpu as dry
-    from audio_fewshot_tpu_torch import train
     from audio_fewshot_tpu_torch.ops import bdc_cuda
     from audio_fewshot_tpu_torch.parallel import World
 
@@ -2185,21 +2182,6 @@ def parallel_phase(smi: str, eval_cells: dict) -> tuple:
                   f"{shares['grad_ms']:.1f} ms, the {shares['other_calls']} small ones "
                   f"{shares['other_ms']:.1f} ms (timed between syncs); {smi}", flush=True)
             parallel_compare(label, nccl[0], one)
-        # the shipped cell's bf16 train step, deterministic: true and false
-        torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
-        bdc_cuda.launches = bdc_cuda.backward_launches = 0
-        tcfg = train.slice_config(os.path.join(root, "steps"))
-        ms = step_times(World(0, 1, torch.device("cuda", 0)), tcfg, DETERMINISTIC_STEPS)
-        torch.cuda.synchronize()
-        forward, backward = forward + bdc_cuda.launches, backward + bdc_cuda.backward_launches
-        print(f"[parallel] deepbdc_5shot_iid_seed0 train step (bf16, Adam, 75 segments, one "
-              f"rank), mean of {DETERMINISTIC_STEPS} after 3: deterministic: true (cuDNN's "
-              f"deterministic algorithms, the shipped configs' setting) {ms[True]:.2f} ms, "
-              f"false (autotuned) {ms[False]:.2f} ms; {smi}", flush=True)
-        if not all(math.isfinite(v) for v in ms.values()):
-            raise AssertionError("phase 25: non-finite step time")
-    f, b = eval_transfer_ab(eval_cells, smi)
-    forward, backward = forward + f, backward + b
     print(f"[parallel] phase 25 wall {time.time() - t_phase:.1f} s; BDC launches: forward "
           f"{forward}, backward {backward}", flush=True)
     print(flush=True)
@@ -2458,9 +2440,10 @@ def main() -> int:
     # timed, with the gram's bmm beside: the main path's two shapes, phase
     # 20's flat batch and phase 22's resnet18Bdc eval step (M = 80)
     timed = {(1200, m_main), (b_main, m_main), (FLAT_SHAPE[0], m_main),
-             (b_main, M_RESNET18_BDC)}
+             (b_main, M_RESNET18_BDC), (RANK_FLAT_SHAPE[0], m_main)}
     for b, d, m, shift in [
             (1200, 64, m_main, 0), (b_main, 64, m_main, 0), (FLAT_SHAPE[0], 64, m_main, 0),
+            (*RANK_FLAT_SHAPE, 0),
             (b_main, 64, M_RESNET18_BDC, 0), (BDC18_TRAIN_SHAPE[0], 64, M_RESNET18_BDC, 0),
             *[(b, 64, m_main, 0) for b in sorted(b_tta | {tta_augmented})], (2, 16, 45, 0),
             (3, 100, 77, 0), (5, 128, 33, 0), (3, 128, 40, 0), (2, 100, 76, 0),
@@ -2480,10 +2463,12 @@ def main() -> int:
         if not (err_tri <= ERR_LIMIT and err_full <= ERR_LIMIT):
             raise AssertionError(f"bdc_pool kernel disagrees with plain at {(b, d, m)}")
         max_err = max(max_err, err_tri, err_full)
-        if m == M_RESNET18_BDC:
+        if m == M_RESNET18_BDC or (b, d, m) == RANK_FLAT_SHAPE:
             x64 = x.double()
             err64 = (full.double() - bdc_from_gram(torch.bmm(x64, x64.mT), log_t)).abs().max().item()
-            print(f"[kernel] bdc_pool {(b, d, m)} (phase 22's resnet18Bdc): max_abs_err vs "
+            what = ("phase 22's resnet18Bdc" if m == M_RESNET18_BDC
+                    else "phase 25's DeepBDC_Pretrain shard a rank")
+            print(f"[kernel] bdc_pool {(b, d, m)} ({what}): max_abs_err vs "
                   f"float64 {err64:.3e} (limit {ERR_LIMIT:g})")
             if not err64 <= ERR_LIMIT:
                 raise AssertionError(f"bdc_pool kernel is off float64 at {(b, d, m)}")
@@ -2597,7 +2582,8 @@ def main() -> int:
     bwd_err = 0.0
     bwd_times = None
     for b, d, m, shift in [
-            (*TRAIN_SHAPE, 0), (*FLAT_SHAPE, 0), (*BDC18_TRAIN_SHAPE, 0), (2, 16, 45, 0),
+            (*TRAIN_SHAPE, 0), (*FLAT_SHAPE, 0), (*BDC18_TRAIN_SHAPE, 0), (*RANK_FLAT_SHAPE, 0),
+            (2, 16, 45, 0),
             (3, 100, 77, 0), (5, 128, 33, 0),
             (3, 128, 40, 0), (2, 100, 76, 0), (2, 96, 300, 0), (2, 80, 64, 0),
             (3, 48, 8, 0), (4, 32, 12, 0), (2, 16, 8, 0), (2, 64, m_main, 1),
@@ -2621,16 +2607,18 @@ def main() -> int:
         if not (ex <= GRAD_REL_LIMIT and et <= GRAD_REL_LIMIT):
             raise AssertionError(f"bdc_pool_backward disagrees with plain at {(b, d, m)}")
         bwd_err = max(bwd_err, (gx - px).abs().max().item(), (gt - pt).abs().max().item())
-        if (b, d, m) == BDC18_TRAIN_SHAPE:
+        if (b, d, m) in (BDC18_TRAIN_SHAPE, RANK_FLAT_SHAPE):
             tx, tt = bdc_pool_triu_vjp(x.double(), lt.double(), gy.double())
             k64, p64 = max(rel_err(gx, tx), rel_err(gt, tt)), max(rel_err(px, tx), rel_err(pt, tt))
-            print(f"[backward] {(b, d, m)} (phase 22's resnet18Bdc training): vs float64, "
+            what = ("phase 22's resnet18Bdc training" if (b, d, m) == BDC18_TRAIN_SHAPE
+                    else "phase 25's DeepBDC_Pretrain shard a rank")
+            print(f"[backward] {(b, d, m)} ({what}): vs float64, "
                   f"relative to the max abs: kernel {k64:.3e}, plain {p64:.3e} (limit "
                   f"{ERR_LIMIT:g} for the kernel)")
             if not k64 <= ERR_LIMIT:
                 raise AssertionError(f"bdc_pool_backward is off float64 at {(b, d, m)}")
             del tx, tt
-        if (b, d, m) in (TRAIN_SHAPE, FLAT_SHAPE, BDC18_TRAIN_SHAPE):
+        if (b, d, m) in (TRAIN_SHAPE, FLAT_SHAPE, BDC18_TRAIN_SHAPE, RANK_FLAT_SHAPE):
             # deterministic: a second launch on the same input, the same bits
             gx2, gt2 = bdc_cuda.bdc_pool_triu_backward(x, lt, gy)
             if not (torch.equal(gx, gx2) and torch.equal(gt, gt2)):
@@ -2916,7 +2904,7 @@ def main() -> int:
     r18_forward, r18_backward = slice12_phase()
     swin_phase()
     clap_phase()
-    par_forward, par_backward = parallel_phase(smi, transfer_ab_cells())
+    par_forward, par_backward = parallel_phase(smi)
 
     # -- 8. report --------------------------------------------------------------
     ms, plain_ms, bound_ms, bound_by = times[(b_main, m_main)]
