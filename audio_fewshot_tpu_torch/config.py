@@ -247,7 +247,8 @@ class Config:
         # episode divisibility sanity checks (reference trainer.py:724-754)
         # at the world size the config asks for; the launched world's size
         # is checked against the knob its loop reads (episode_size in
-        # training, test_episode_size in a test: eval.world_for)
+        # training: train.train_divisors; an eval step that does not split
+        # runs replicated)
         n_dev = int(config.get("n_devices") or config.get("n_gpu") or 1)
         if n_dev > 1 and config["episode_size"] % n_dev != 0:
             raise ValueError(

@@ -7,9 +7,12 @@ step, DeepBDC's energy-OOD TTA eval through ``Test``, a MAML outer step
 VisionTransformer; flat (FINETUNING) steps of Baseline, MetabaselinePretrain
 and S2M2 (its mixup partners from every rank), FEAT, MeTAL on both loss-net
 paths, a ``Trainer``'s replicated eval of 3 episodes a step and IfslPretrain's
-featuring pass, run over N ranks and over one; every number the N-rank
-run gives must be the one-rank run's, up to the order of its float32
-sums (``mismatch``, ``COMPARED``).
+featuring pass, ``Test``'s replicated steps at 3 episodes a step, and two
+steps of each of the 17 heads of ``HEAD_CELLS`` (the local-descriptor and
+resnet12 episodic heads, LEO, VERSA, MTL, RelationNet, CAN, DMatchingNet)
+with a ragged eval of RelationNet and VERSA, run over N ranks and over
+one; every number the N-rank run gives must be the one-rank run's, up to
+the order of its float32 sums (``mismatch``, ``COMPARED``).
 
     python -m audio_fewshot_tpu_torch.dryrun_multigpu --nproc 2 [--device cpu]
 
@@ -515,6 +518,186 @@ def tta_eval(world: World, cfg=None, result_path: Optional[str] = None) -> Dict[
             "eps": test.epoch_eps}
 
 
+def replicated_test(world: World, root: str) -> Dict[str, Any]:
+    """ProtoNet's ``Test`` on a ``synthetic:4:4`` root at 3 episodes a step
+    (2 steps; 3 do not split over 2 ranks, so they run replicated): the
+    per-episode accuracies, the mean and the CI."""
+    cfg = proto_config(data_root="synthetic:4:4", result_root=root, test_episode=6,
+                       test_episode_size=3, test_epoch=1, max_segments_per_clip=2,
+                       segment_bucket_sizes=[16], prefetch=0)
+    test = Test(0, cfg, None, device=world.device)
+    mean, ci = test.test_loop()
+    return {"episode_accs": test.episode_accs, "mean": mean, "ci": ci,
+            "replicated": test.replicated}
+
+
+# -- the heads audited for ranks last -----------------------------------------------------------
+
+def _resnet12(keep_map: bool = False) -> Dict[str, Any]:
+    """The port's resnet12 tests' narrow resnet12 (planes 8/12/16/20; no
+    Dropout or DropBlock, whose masks each rank draws for itself): a [20, 1,
+    1] map at the cell's segments, flat or kept."""
+    kwargs = {"num_channels": 1, "planes": [8, 12, 16, 20], "drop_rate": 0.0}
+    if keep_map:
+        kwargs.update(is_flatten=False, avg_pool=False)
+    return {"name": "resnet12", "kwargs": kwargs}
+
+
+#: RelationNet's segments: its two 3 x 3 VALID convs and pools need a map of
+#: 8 x 8 or more (Conv64F's [64, 8, 8] here; the cell's 2 x 3 leaves none)
+RELATION_SPEC = (1, 72, 72)
+#: CAN's global classes (its global cross-entropy's targets)
+CAN_CLASSES = 6
+#: ADM_KL's SGD learning rate: its KL of 6 descriptors' near-singular 64 x
+#: 64 covariances starts at a loss of 65.5; on one rank, support rows moved
+#: by 1e-7 of themselves move the second step's loss by 3.7e-5 at
+#: ``FEAT_LR`` (the limit is 2e-5), by 6.2e-6 at 5e-5
+ADM_KL_LR = 5e-5
+#: RelationNet's: the JAX package's float32 step over 1 device and over 2
+#: (flax's one-pass BatchNorm variance) leaves parameters 1.5 times the
+#: limits apart after two steps at 0.05
+RELATION_LR = 5e-3
+#: the 17 heads audited for ranks last, each on the cell (3-way 2-shot
+#: 2-query, float32, SGD at lr 0.05) with what it needs: the cell's Conv64F
+#: map (DSN, FRN, MetaBaselineKendall and MTL on ``_resnet12``; DMatchingNet
+#: on its flat logits head, whose BatchNorm1d keeps running statistics), inner loops
+#: of 2 steps, VERSA at 4 samples of 32 (its Dropout, and ConvMNet's, the
+#: identity: drawn per rank), LEO's latent at 16; FRN and
+#: MetaBaselineKendall at SGD ``FEAT_LR``: at 0.05, on one rank, support rows
+#: moved by 1e-7 of themselves move the state after the second step by 11.5
+#: and 7.9 times the limits (ADM_KL's by 3.8: ``ADM_KL_LR``); ConvMNet at
+#: ``FEAT_LR`` too: its first loss is 15.5 (the softmax of covariance scores
+#: in the hundreds saturates), and on an H100 2 ranks and 1 parted by 4.5
+#: times the limits after two steps at 0.05 (0.05 times them on the CPU)
+HEAD_CELLS: Dict[str, Dict[str, Any]] = {
+    "DN4": {"classifier": {"name": "DN4", "kwargs": {"n_k": 3}}},
+    "ADM": {"classifier": {"name": "ADM", "kwargs": {"n_k": 3}}},
+    "ADM_KL": {"classifier": {"name": "ADM_KL", "kwargs": None},
+               "optimizer": {"name": "SGD", "kwargs": {"lr": ADM_KL_LR}}},
+    "ConvMNet": {"classifier": {"name": "ConvMNet", "kwargs": None},
+                 "optimizer": {"name": "SGD", "kwargs": {"lr": FEAT_LR}}},
+    "ATLNet": {"classifier": {"name": "ATLNet", "kwargs": None}},
+    "MCL": {"classifier": {"name": "MCL", "kwargs": None}},
+    "R2D2MCL": {"classifier": {"name": "R2D2MCL", "kwargs": None}},
+    "RelationNet": {"classifier": {"name": "RelationNet", "kwargs": None},
+                    "spec_shape": list(RELATION_SPEC),
+                    "optimizer": {"name": "SGD", "kwargs": {"lr": RELATION_LR}}},
+    "CAN": {"classifier": {"name": "CAN", "kwargs": {"num_classes": CAN_CLASSES}}},
+    "LEO": {"classifier": {"name": "LEO", "kwargs": {
+        "hid_dim": 16, "inner_para": {"iter": 2, "lr": 1.0, "finetune_iter": 2,
+                                      "finetune_lr": 0.1}}}},
+    "VERSA": {"classifier": {"name": "VERSA", "kwargs": {"sample_num": 4, "d_theta": 32}}},
+    "DMatchingNet": {"classifier": {"name": "DMatchingNet", "kwargs": {
+        "ifsl_param": {"class_num": CAN_CLASSES}}},
+        "backbone": {"name": "Conv64F", "kwargs": {**_CONV64F_MAP["kwargs"], "is_flatten": True}}},
+    "DSN": {"classifier": {"name": "DSN", "kwargs": {"discriminative": True}},
+            "backbone": _resnet12()},
+    "FRN": {"classifier": {"name": "FRN", "kwargs": None}, "backbone": _resnet12(True),
+            "optimizer": {"name": "SGD", "kwargs": {"lr": FEAT_LR}}},
+    "MetaBaselineKendall": {"classifier": {"name": "MetaBaselineKendall", "kwargs": None},
+                            "backbone": _resnet12(),
+                            "optimizer": {"name": "SGD", "kwargs": {"lr": FEAT_LR}}},
+    "MTL": {"classifier": {"name": "MTL", "kwargs": {"inner_param": {"iter": 2, "lr": 0.01}}},
+            "backbone": _resnet12()},
+}
+#: the heads whose BatchNorm takes batch statistics in eval too
+RAGGED_HEADS = ("RelationNet", "VERSA")
+#: controls: a repair undone on purpose, which a test's limits must see
+HEAD_FAULTS = {
+    "disc_sum": "DSN's orthogonality sum taken per rank (not times the world size)",
+    "local_mean": "LEO's inner support loss the mean over this rank's rows",
+    "draws": "LEO's and VERSA's noise drawn at this rank's shape",
+    "head_bn": "the head's BatchNorm moments taken per rank",
+    "running_stats": "DMatchingNet's running statistics the mean of this rank's episodes",
+}
+
+
+def head_config(head: str, **over) -> Dict[str, Any]:
+    """``head``'s cell of ``HEAD_CELLS`` (``over`` replacing its keys)."""
+    return proto_config(**{**copy.deepcopy(HEAD_CELLS[head]), **over})
+
+
+@contextlib.contextmanager
+def _undone(fault: Optional[str], head: str):
+    """``fault`` (a key of ``HEAD_FAULTS``, or None) in force: the name its
+    repair reads replaced, in the head's module (``head_bn``: its
+    ``sharded_rows``, a no-op) or in the module the repair lives in."""
+    if fault is None:
+        yield
+        return
+    from .models.backbones import layers
+    from .models.heads import dsn, ifsl, leo
+    from .registry import CLASSIFIERS
+
+    module, name, value = {
+        "disc_sum": (dsn, "sharded_world", lambda: None),
+        "local_mean": (leo, "sharded_world", lambda: None),
+        "draws": (layers, "sharded_world", lambda: None),
+        "head_bn": (sys.modules[CLASSIFIERS.get(head).__module__], "sharded_rows",
+                    contextlib.nullcontext),
+        "running_stats": (ifsl, "sharded_world", lambda: None)}[fault]
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _fed(draws: Sequence[np.ndarray]) -> Callable:
+    """A ``GaussianNoise.draw`` that returns the given array of the shape
+    asked (the whole step's, over several ranks too)."""
+    by_shape = {tuple(a.shape): a for a in draws}
+
+    def draw(shape, like):
+        return torch.as_tensor(by_shape[tuple(shape)], dtype=like.dtype, device=like.device)
+
+    return draw
+
+
+def head_train(world: World, head: str, state=None, steps: int = 2, seed: int = 4,
+               fault: Optional[str] = None, draws: Optional[Sequence[np.ndarray]] = None,
+               **over) -> Dict[str, Any]:
+    """``steps`` SGD steps of 8 episodes of a ``HEAD_CELLS`` head (config
+    keys ``over``), Dropout the identity: the losses, the state after the
+    first step and after the last, and the eval logits of the first batch;
+    with ``draws``, the sampler's noise given (by shape); under ``fault``
+    for a control."""
+    cfg = head_config(head, **over)
+    batches = episode_batches(steps, spec=tuple(cfg["spec_shape"]), seed=seed,
+                              global_classes=CAN_CLASSES if head == "CAN" else 0)
+
+    def prepare(method):
+        _no_dropout(method)
+        if draws:
+            method.noise.draw = _fed(draws)
+
+    with _undone(fault, head):
+        return _train(world, cfg, batches, state, eval_batch=batches[0], prepare=prepare)
+
+
+def head_ragged_eval(world: World, head: str, state=None,
+                     fault: Optional[str] = None) -> Dict[str, Any]:
+    """A ``RAGGED_HEADS`` head's eval logits of 8 ragged episodes (query
+    clips of 1-2 segments in a bucket of 16 rows, so that each rank holds
+    its own count of real rows), gathered in rank order, and each
+    episode's real query rows."""
+    cfg = head_config(head)
+    spec = tuple(cfg["spec_shape"])
+    rng = np.random.default_rng(5)
+    e = 8
+    repeats = rng.integers(1, 3, size=(e * 6,))
+    sup = rng.normal(size=(e, 6) + spec).astype(np.float32)
+    segs = rng.normal(size=(int(repeats.sum()),) + spec).astype(np.float32)
+    batch = pack_ragged_episode_batch(sup, segs, repeats, 3, 2, 2, bucket_sizes=(16,))
+    method = _method(cfg, state, world.device).eval()
+    local = shard_batch(batch, world)
+    with _undone(fault, head), torch.no_grad():
+        logits = method(local, eval_setting(cfg))
+    return {"logits": gather_rows(logits, world).cpu(),
+            "real_rows": gather_rows((local.query_mask > 0).sum(dim=1), world).cpu()}
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -537,6 +720,8 @@ SCENARIOS: Dict[str, Callable[..., Dict[str, Any]]] = {
     "pretrain_train": pretrain_train, "s2m2_train": s2m2_train, "feat_train": feat_train,
     "metal_train": metal_train, "trainer_train": trainer_train,
     "replicated_eval": replicated_eval, "ifsl_featuring": ifsl_featuring,
+    "replicated_test": replicated_test, "head_train": head_train,
+    "head_ragged_eval": head_ragged_eval,
 }
 
 
@@ -598,8 +783,9 @@ def run_ranks(nproc: int, plan: Dict[str, Dict[str, Any]], device: str = "cpu",
                 for r in range(nproc)]
 
 
-#: result keys that are times, not results
-TIMINGS = ("eps",)
+#: result keys that describe the run, not its results: times, and whether
+#: ``Test`` ran its steps replicated (over ranks, not on one)
+TIMINGS = ("eps", "replicated")
 #: eval logits: ProtoNet's -|q - p|^2 = 2 q.p - |q|^2 - |p|^2 cancels, so 2
 #: ranks and one part by up to 4e-3 of logits near 50 (on the CPU and on
 #: the card alike); tests/test_torch_port_parallel.py's atol
@@ -656,7 +842,8 @@ def default_plan(root: str) -> Dict[str, Dict[str, Any]]:
     save_model_best(root, build_method(cfg))
     return {"proto_train": {}, "batchnorm": {}, "ragged_eval": {}, "flagship_train": {},
             "dual_train": {}, "tta_eval": {"cfg": cfg, "result_path": root},
-            "maml_train": {}, "cpea_train": {}, **FLAT_PLAN, **flat_root_plan(root)}
+            "maml_train": {}, "cpea_train": {}, **FLAT_PLAN, **flat_root_plan(root),
+            **head_plan(root)}
 
 
 #: the flat family's, FEAT's and MeTAL's scenarios that need no files
@@ -670,6 +857,15 @@ def flat_root_plan(root: str) -> Dict[str, Dict[str, Any]]:
     featuring pass."""
     return {"replicated_eval": {"root": os.path.join(root, "replicated")},
             "ifsl_featuring": {"root": os.path.join(root, "featuring")}}
+
+
+def head_plan(root: str) -> Dict[str, Dict[str, Any]]:
+    """The 17 heads of ``HEAD_CELLS`` (two steps each), the ragged eval of
+    ``RAGGED_HEADS`` and ``Test``'s replicated steps (its result directory
+    under ``root``)."""
+    return {**{f"head_train:{h}": {"head": h} for h in HEAD_CELLS},
+            **{f"head_ragged_eval:{h}": {"head": h} for h in RAGGED_HEADS},
+            "replicated_test": {"root": os.path.join(root, "replicated_test")}}
 
 
 def main(argv=None) -> int:

@@ -20,11 +20,15 @@ step's uncertainties before its quantile, and the TTA gathers them before
 ``ood_topk``, so the whole step's top 20 % is flagged and each rank re-votes
 its own flagged clips with the values the whole step's draw gives them.
 The host drains the accuracies every ``eval_queue_depth`` steps (0: every
-step; by default 32 with a segment bank, 4 without).
+step; by default 32 with a segment bank, 4 without).  A ``test_episode_size``
+that the world does not divide runs replicated (``parallel.replicated_rows``):
+every rank computes every episode of a step, as the JAX package's ``Test``
+and the ``Trainer``'s eval do, and nothing is gathered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -44,7 +48,7 @@ from .models.base import EpisodeSetting, MethodBase
 from .models.heads.proto_net import apply_bpa
 from .ops.audio_augmentations import batch_augment_spectrogram, draw_params, select_rows
 from .parallel import (World, gather_rows, get_mesh, maybe_init_distributed, replicate,
-                       shard_batch, transfer_ahead)
+                       replicated_rows, shard_batch, transfer_ahead)
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.aggregate import clip_vote_counts
 from .utils.checkpoint import BEST, load_model
@@ -436,9 +440,16 @@ class Test:
         # the random init when no checkpoint
         init_seed(int(config.get("seed", 0)), config.get("deterministic"))
         self.method: MethodBase = build_method(config)
-        self.world = world_for(config, self.method, self.device, {
-            "test_episode_size": config.get("test_episode_size") or config.get("episode_size", 1)})
+        # a step whose episodes do not split over the ranks runs replicated,
+        # decided before the world is asked to divide them
+        step = int(config.get("test_episode_size") or config.get("episode_size", 1))
+        size = dist.get_world_size() if dist.is_initialized() else 1
+        self.replicated = step % size != 0
+        self.world = world_for(config, self.method, self.device,
+                               {} if self.replicated else {"test_episode_size": step})
         self.device = self.world.device
+        #: the world a step's episodes split over: one rank's when replicated
+        self.step_world = World(0, 1, self.device) if self.replicated else self.world
         self.setting = eval_setting(config)
         modality = config.get("modality", "audio")
         # the val split feeds only the energy calibration pass
@@ -513,7 +524,7 @@ class Test:
     def _eval_step(self, host_batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-episode accuracy (on the device) of this rank's shard of one
         host batch: ``_device_step``."""
-        return self._device_step(shard_batch(host_batch, self.world, self.transfer_dtype),
+        return self._device_step(shard_batch(host_batch, self.step_world, self.transfer_dtype),
                                  generator)
 
     def _device_step(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -526,7 +537,7 @@ class Test:
                 tta_mean=self.tta_mean, tta_std=self.tta_std,
                 num_augmentations=self.num_augmentations,
                 tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank,
-                world=self.world)
+                world=self.step_world)
         if self.test_bank is not None:
             batch = materialize_episode_batch(batch, self.test_bank)
         seg_logits = self.method(batch, self.setting)
@@ -534,6 +545,10 @@ class Test:
 
     @torch.no_grad()
     def test_loop(self) -> Tuple[float, float]:
+        with replicated_rows() if self.replicated else contextlib.nullcontext():
+            return self._test_loop()
+
+    def _test_loop(self) -> Tuple[float, float]:
         cfg = self.config
         n_epochs = int(cfg.get("test_epoch", 5))
         if getattr(self.method, "supports_energy_ood", False):
@@ -543,7 +558,7 @@ class Test:
             th = self.method.calibrate_threshold(
                 self.val_loader[0], self.setting,
                 policy=str(cfg.get("uncertainty_policy", "mean")),
-                dump_path=dump, bank=self.val_bank, world=self.world,
+                dump_path=dump, bank=self.val_bank, world=self.step_world,
             )
             self.logger.info("uncertainty threshold: %s", th)
         if self.enhance_via_energy:
@@ -584,11 +599,11 @@ class Test:
             def drain():
                 # each step's episodes in rank order: the one-rank order
                 if pending:
-                    accs.extend(torch.cat([gather_rows(p, self.world) for p in pending])
+                    accs.extend(torch.cat([gather_rows(p, self.step_world) for p in pending])
                                 .cpu().tolist())
                 pending.clear()
 
-            for batch in transfer_ahead(self.test_loader[0].epoch(epoch), self.world,
+            for batch in transfer_ahead(self.test_loader[0].epoch(epoch), self.step_world,
                                         self.transfer_dtype):
                 pending.append(self._device_step(batch, step_generator()))
                 if len(pending) >= depth:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.collectives import all_reduce_sum, rows_sharded
+from ...parallel.collectives import all_reduce_sum, rows_sharded, sharded_world
 
 
 class Conv2d(nn.Conv2d):
@@ -78,6 +78,16 @@ class _FlaxBatchNorm:
         if update:
             self._update_running(mean, var)
         return out
+
+    def batch_normalize(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """``x`` normalised by its batch statistics over the rows where
+        ``mask`` (all rows when None), over every rank's rows inside
+        ``parallel.sharded_rows``; the running statistics are left alone."""
+        synced = rows_sharded()
+        if mask is None and not synced:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return self._masked(x, mask, synced)[0]
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -186,7 +196,11 @@ class GaussianNoise(_SeededNoise):
     (``_SeededNoise``).  ``restart`` rewinds the generator to its seed: the
     heads call it at the start of each eval forward, so eval draws the same
     noise every call, as the JAX package samples eval logits from
-    ``PRNGKey(0)``."""
+    ``PRNGKey(0)``.  Over several ranks ``draw_rows`` draws the whole step's
+    noise on every rank (one seed for all) and keeps this rank's episodes,
+    so N ranks sample what one rank samples."""
+
+    same_on_every_rank = True
 
     def restart(self) -> None:
         self.generator = None
@@ -194,6 +208,19 @@ class GaussianNoise(_SeededNoise):
     def draw(self, shape, like: torch.Tensor) -> torch.Tensor:
         return torch.randn(shape, generator=self._generator(like), device=like.device,
                            dtype=like.dtype)
+
+    def draw_rows(self, shape, like: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """``draw`` of this rank's rows along the episode ``axis`` of
+        ``shape``: the draw at that axis times the world size (the whole
+        step's), narrowed to this rank's slice (``World.rows``).  With one
+        rank, or inside ``parallel.replicated_rows``, it is ``draw``."""
+        world = sharded_world()
+        if world is None:
+            return self.draw(shape, like)
+        whole = list(shape)
+        whole[axis] *= world.size
+        rows = world.rows(whole[axis])
+        return self.draw(whole, like).narrow(axis, rows.start, rows.stop - rows.start)
 
 
 def dropblock_mask(seeds: torch.Tensor, block_size: int) -> torch.Tensor:

@@ -69,9 +69,11 @@ class MethodBase(nn.Module):
     needs_feature_map = False
     #: audited to compute over several ranks what it computes over one: its
     #: loss is a mean over equally sharded episodes (or flat rows), and each
-    #: reduction over that axis (the backbone's BatchNorm moments,
+    #: reduction over that axis (the backbone's and the head's BatchNorm
+    #: moments, DSN's sum over episodes, LEO's inner mean over the support
+    #: rows, LEO's and VERSA's draws, DMatchingNet's running statistics,
     #: ``ood_topk``, the calibration quantiles, S2M2's mixup partners) is
-    #: taken over all ranks.  ``Trainer`` and
+    #: taken over all ranks.  Every registered method is; ``Trainer`` and
     #: ``Test`` refuse any other method at a world larger than one
     shardable = False
 

@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import BatchNorm, Conv2d
 from .local_metrics import LocalDescriptorMethod, l2_normalize
@@ -47,8 +48,8 @@ class AEAModule(nn.Module):
 class ATLModule(nn.Module):
     """``W`` (shared by query and support) and the AEA attention.  ``W`` runs
     on the query maps first, then on the support maps: in train mode its BN
-    updates its running statistics twice a step, in that order, as the JAX
-    package's."""
+    takes each call's moments over every rank's episodes and updates its
+    running statistics twice a step, in that order, as the JAX package's."""
 
     def __init__(self, in_channels: int, feat_dim: int = 64, scale_value: float = 30.0,
                  atten_scale_value: float = 50.0, from_value: float = 0.5,
@@ -66,7 +67,8 @@ class ATLModule(nn.Module):
         ws, hw, fd = support_feat.shape[1], h * w, self.feat_dim
 
         def transform(x: torch.Tensor, n: int) -> torch.Tensor:
-            return self.W(x.reshape(e * n, c, h, w)).reshape(e, n, fd, hw)
+            with sharded_rows():  # train-mode moments over every rank's episodes
+                return self.W(x.reshape(e * n, c, h, w)).reshape(e, n, fd, hw)
 
         wq = l2_normalize(transform(query_feat, g).transpose(-1, -2), -1)  # [E, G, hw, fd]
         wsup = transform(support_feat, ws).transpose(1, 2).reshape(e, fd, ws * hw)

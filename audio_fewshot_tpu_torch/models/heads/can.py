@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import BatchNorm1d
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType
@@ -70,16 +71,15 @@ class CAM(nn.Module):
     def forward(self, corr: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
         """corr ``[..., n1, n2, M_own, M_partner]`` → the attention over the
         own positions ``[..., n1, n2, M_own]``.  In train mode the BN uses
-        the batch statistics over every leading axis; ``update_stats=False``
-        leaves its running statistics alone."""
+        the batch statistics over every leading axis (over every rank's
+        episodes); ``update_stats=False`` leaves its running statistics
+        alone."""
         a = corr.mean(dim=-2)
         z = _apply1x1(self.conv1.conv, a)
         bn = self.conv1.bn
         flat = z.reshape(-1, z.shape[-1])
-        if bn.training and not update_stats:
-            flat = F.batch_norm(flat, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
-        else:
-            flat = bn(flat)
+        with sharded_rows():  # the rows of every rank's episodes
+            flat = bn.batch_normalize(flat) if bn.training and not update_stats else bn(flat)
         z = _apply1x1(self.conv2, F.relu(flat.reshape(z.shape)))
         att = (corr * z[..., None, :]).mean(dim=-1)
         return torch.softmax(att / 0.025, dim=-1) + 1.0
@@ -101,6 +101,7 @@ class CAN(MethodBase):
     model_type = ModelType.METRIC
     needs_feature_map = True
     needs_map_shape = True
+    shardable = True
 
     def __init__(self, emb_func, map_shape: Sequence[int], scale_cls: float = 7.0,
                  iter_num_prob: float = 35.0 / 75, num_classes: int = 25, nFeat: int = 640,

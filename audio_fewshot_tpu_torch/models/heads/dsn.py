@@ -5,7 +5,8 @@ Each class's subspace is spanned by the top ``shot − 1`` left singular
 vectors of its support matrix ``[d, shot]`` (the raw support, not centred,
 as the JAX package and the reference); a query's logit is −‖q − P Pᵀ q‖² / d.
 With ``discriminative`` the train loss adds ``disc_weight`` × the squared
-Frobenius overlap of the class subspaces.  1-shot falls back to
+Frobenius overlap of the class subspaces, summed over the batch's episodes
+(every rank's, over several ranks).  1-shot falls back to
 nearest-prototype logits (a 0-dimensional subspace is degenerate).  In
 float32, one batched ``torch.linalg.svd`` over ``[E·way, d, shot]``.
 
@@ -20,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_world
 from ...registry import CLASSIFIERS
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
 from .proto_net import proto_logits
@@ -56,6 +58,7 @@ def dsn_disc_loss(subspace: torch.Tensor) -> torch.Tensor:
 @CLASSIFIERS.register("DSN")
 class DSN(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
 
     def __init__(self, emb_func, discriminative: bool = False, disc_weight: float = 0.03,
                  **kwargs):
@@ -77,5 +80,11 @@ class DSN(MethodBase):
         seg_logits, subspace = self._logits(batch, setting)
         loss = masked_cross_entropy(seg_logits, segment_targets(batch), batch.query_mask)
         if self.discriminative and subspace is not None:
-            loss = loss + self.disc_weight * dsn_disc_loss(subspace)
+            # a sum over the episodes: over N ranks each rank's sum times N,
+            # whose mean over the ranks (the logged loss, the averaged
+            # gradients) is the sum over every rank's episodes, with no
+            # collective in the step
+            world = sharded_world()
+            ranks = 1 if world is None else world.size
+            loss = loss + self.disc_weight * dsn_disc_loss(subspace) * ranks
         return loss, LossOutput(seg_logits, self.train_metrics(seg_logits, batch))

@@ -249,6 +249,69 @@ def sklearn_probe_logits(sup_f: torch.Tensor, sup_y: torch.Tensor, qry_f: torch.
     return logits_of(p, q).to(out_dtype)
 
 
+def reference_matched_adaptation(head_kind: str, init_params: Dict[str, torch.Tensor],
+                                 sup_f: torch.Tensor, sup_y: torch.Tensor, qry_f: torch.Tensor,
+                                 perms: Sequence, batch_size: int, lr: float, momentum: float,
+                                 weight_decay: float, way: int, margin: float = 0.0,
+                                 scale: float = 1.0) -> torch.Tensor:
+    """The query logits ``[Q, way]`` after the reference's
+    ``set_forward_adaptation`` loop of one episode (its Baseline,
+    BaselinePlus, S2M2 and NegNet): minibatch SGD over the given
+    permutation schedule ``perms`` (one ``randperm`` of the support rows
+    each), torch ``optim.SGD``'s step (d = g + wd·p; buf = d at the first
+    step, else m·buf + d; p −= lr·buf), from the head's initial parameters.
+    For users who need the reference's own eval adaptation rather than
+    the full-batch steps of ``FinetuningBase``.  In float32.
+
+    ``head_kind``:
+      - ``"linear"``: {weight [way, D], bias [way]}, plain logits;
+      - ``"dist_linear"``: {weight_g [way, 1], weight_v [way, D]} (torch's
+        WeightNorm at dim 0), logits scale · (x / (‖x‖ + 1e-5)) @ (g·v /
+        ‖v‖)ᵀ;
+      - ``"neg_cosine"``: {weight [way, D]}, the inner steps' logits less
+        ``margin`` at the true class before × scale, the query logits the
+        plain cosine × scale (``F.normalize``'s 1e-12 clamps)."""
+    if head_kind not in ("linear", "dist_linear", "neg_cosine"):
+        raise ValueError(f"unknown head_kind {head_kind!r}: linear, dist_linear or neg_cosine")
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=sup_f.device).clone()
+              for k, v in init_params.items()}
+    sup_f, qry_f, sup_y = sup_f.float(), qry_f.float(), sup_y.long()
+
+    def head_logits(p, x, labels=None):
+        if head_kind == "linear":
+            return x @ p["weight"].T + p["bias"]
+        if head_kind == "dist_linear":
+            v = p["weight_v"]
+            w = p["weight_g"] * v / v.norm(dim=1, keepdim=True)
+            return scale * ((x / (x.norm(dim=1, keepdim=True) + 1e-5)) @ w.T)
+        w = p["weight"]
+        cos = ((x / x.norm(dim=1, keepdim=True).clamp(min=1e-12))
+               @ (w / w.norm(dim=1, keepdim=True).clamp(min=1e-12)).T)
+        if labels is None:
+            return cos * scale
+        return (cos - margin * F.one_hot(labels, way).to(cos.dtype)) * scale
+
+    bufs = {k: torch.zeros_like(v) for k, v in params.items()}
+    step = 0
+    for perm in perms:
+        perm = torch.as_tensor(perm, dtype=torch.long, device=sup_f.device)
+        for i in range(0, sup_f.shape[0], batch_size):
+            sel = perm[i:i + batch_size]
+            live = {k: v.detach().requires_grad_() for k, v in params.items()}
+            labels = sup_y[sel]
+            with torch.enable_grad():
+                loss = cross_entropy(head_logits(live, sup_f[sel], labels
+                                                 if head_kind == "neg_cosine" else None), labels)
+                grads = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+            for k in params:
+                d = grads[k] + weight_decay * params[k]
+                bufs[k] = d if (step == 0 and momentum) else momentum * bufs[k] + d
+                params[k] = params[k] - lr * (bufs[k] if momentum else d)
+            step += 1
+    with torch.no_grad():
+        return head_logits(params, qry_f)
+
+
 def _normalize_probe_features(f: torch.Tensor) -> torch.Tensor:
     return f / (f.norm(dim=-1, keepdim=True) + 1e-5)
 

@@ -90,6 +90,7 @@ class FRNLayer(nn.Module):
 @CLASSIFIERS.register("FRN")
 class FRN(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
     needs_feature_map = True
 
     def __init__(self, emb_func, aux_weight: float = 0.03, **kwargs):

@@ -42,7 +42,8 @@ backbone calls, the query call masked to its real rows.  Conv64F's logits
 BN1d keeps running statistics (``backbone_kwarg_defaults``): in training
 its EMA compounds support → query within an episode, and the JAX package
 averages the episodes' results, so the statistics are restored before each
-episode and their mean written back after the last.  The heads run over
+episode and their mean written back after the last (over several ranks, the
+mean over every rank's episodes).  The heads run over
 all episodes at once, one LSTM batch per block.
 
 Keys (the reference's): ``utils.linear.*``; ``{x_blocks,d_blocks|blocks}.{j}
@@ -64,6 +65,7 @@ from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import all_reduce_mean, sharded_world
 from ...registry import CLASSIFIERS
 from ...utils.checkpoint import load_part, read_part
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType
@@ -152,6 +154,7 @@ def _cosine_scores(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @CLASSIFIERS.register("DMatchingNet")
 class DMatchingNet(MethodBase):
     model_type = ModelType.META
+    shardable = True
     requires_batch_stat_bn = True
     backbone_kwarg_defaults = {"logits_bn_running_statistics": True}
     #: ``build_method`` passes the backbone's flat feature width as
@@ -303,6 +306,7 @@ class DMatchingNet(MethodBase):
         bns = [m for m in self.emb_func.modules()
                if isinstance(m, _BatchNorm) and m.track_running_stats] if self.training else []
         start = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+        counts = [m.num_batches_tracked.clone() for m in bns]
         ends = []
         sups, qrys = [], []
         for e in range(batch.num_episodes):
@@ -312,9 +316,20 @@ class DMatchingNet(MethodBase):
             sups.append(self._embed_role(batch.support[e]))
             qrys.append(self._embed_role(batch.query[e], batch.query_mask[e] > 0))
             ends.append([(m.running_mean.clone(), m.running_var.clone()) for m in bns])
-        for i, m in enumerate(bns):
-            m.running_mean.copy_(torch.stack([end[i][0] for end in ends]).mean(dim=0))
-            m.running_var.copy_(torch.stack([end[i][1] for end in ends]).mean(dim=0))
+        if bns:
+            # the mean of every episode's end: over equal shards, the mean
+            # over the ranks of each rank's mean, in one all-reduce; each
+            # rank's episodes count on every rank
+            means = torch.cat([torch.stack([torch.cat(end[i]) for end in ends]).mean(dim=0)
+                               for i in range(len(bns))])
+            world = sharded_world()
+            if world is not None:
+                means = all_reduce_mean(means, world)
+                for m, n in zip(bns, counts):
+                    m.num_batches_tracked.copy_(n + (m.num_batches_tracked - n) * world.size)
+            for m, mean in zip(bns, means.split([2 * m.num_features for m in bns])):
+                m.running_mean.copy_(mean[:m.num_features])
+                m.running_var.copy_(mean[m.num_features:])
         return torch.stack(sups), torch.stack(qrys)
 
     # -- method API ------------------------------------------------------------

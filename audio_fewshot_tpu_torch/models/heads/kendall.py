@@ -139,6 +139,7 @@ def kendall_logits(query: torch.Tensor, proto: torch.Tensor, beta: float = 1.0,
 @CLASSIFIERS.register("MetaBaselineKendall")
 class MetaBaselineKendall(MethodBase):
     model_type = ModelType.METRIC
+    shardable = True
 
     def __init__(self, emb_func, beta: float = 1.0, temperature: float = 0.0125, **kwargs):
         super().__init__(emb_func, **kwargs)

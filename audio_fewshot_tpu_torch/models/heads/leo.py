@@ -23,8 +23,11 @@ decoder kernel's row-orthogonality penalty.
   decoder's; an eval forward restarts it from its seed.
 - The support cross-entropy of both loops is the mean over all the batch's
   support rows, as the JAX package takes it, so an episode's gradient is
-  1/E of its own mean's.  The loops step all episodes at once
+  1/E of its own mean's; over N ranks, every rank's rows (the local mean
+  divided by N).  The loops step all episodes at once
   (``maml.sgd_steps``), second order in training.
+- Over several ranks each rank keeps its episodes' rows of the whole
+  step's draws (``GaussianNoise.draw_rows``).
 - The kwarg is ``inner_para``; the decoder is sized from the backbone's
   flat width (``needs_feat_dim``).
 
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_world
 from ...registry import CLASSIFIERS
 from ..backbones.layers import GaussianNoise
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
@@ -81,6 +85,7 @@ def _sample(mean_logvar: torch.Tensor, eps: torch.Tensor) -> Tuple[torch.Tensor,
 @CLASSIFIERS.register("LEO")
 class LEO(MethodBase):
     model_type = ModelType.META
+    shardable = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True
 
@@ -111,16 +116,21 @@ class LEO(MethodBase):
                second_order: bool = True):
         """(classifier weights ``[E, D, way]``, KL, encoder penalty)."""
         enc = self.encoder(sup, setting.way, setting.shot)
-        latent0, mean, logvar = _sample(enc, self.noise.draw(enc[..., :self.hid_dim].shape, enc))
+        latent0, mean, logvar = _sample(enc, self.noise.draw_rows(enc[..., :self.hid_dim].shape,
+                                                                  enc))
         kl = 0.5 * (mean ** 2 + torch.exp(logvar) - logvar - 1.0).mean()
-        eps_dec = self.noise.draw(sup.shape[:1] + (setting.way, self.feat_dim), sup)
+        eps_dec = self.noise.draw_rows(sup.shape[:1] + (setting.way, self.feat_dim), sup)
         y = sup_y.reshape(-1).long()
+        # the mean over every rank's support rows: this rank's mean over the
+        # ranks (equal shards); the episodes are independent, so no collective
+        world = sharded_world()
+        ranks = 1 if world is None else world.size
 
         def decode(z):
             return _sample(self.decoder.decoder_func(z), eps_dec)[0].transpose(1, 2)
 
         def support_loss(w):
-            return F.cross_entropy(torch.bmm(sup, w).reshape(-1, setting.way), y)
+            return F.cross_entropy(torch.bmm(sup, w).reshape(-1, setting.way), y) / ranks
 
         latent, = sgd_steps([latent0], lambda t, step: support_loss(decode(t[0])),
                             self.inner_iter, self.inner_lr, second_order)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import BatchNorm1d, Dropout
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType, masked_cross_entropy
@@ -106,8 +107,9 @@ class ADMLayer(nn.Module):
     """BatchNorm1d(2·way) over the [−KL ‖ cosine] concatenation, then the
     2-tap ``Blend``: ``out[i] = k0·x[i] + k1·x[i + way]`` for i < way, a
     learned blend per class.  Flax's BN semantics (biased running variance,
-    torch momentum 0.1); running statistics in eval, so a row's logits do
-    not depend on the others."""
+    torch momentum 0.1), its train-mode moments over every rank's rows;
+    running statistics in eval, so a row's logits do not depend on the
+    others."""
 
     def __init__(self, way_num: int):
         super().__init__()
@@ -116,7 +118,8 @@ class ADMLayer(nn.Module):
 
     def forward(self, kl_dis: torch.Tensor, inner_sim: torch.Tensor) -> torch.Tensor:
         e, g, w = kl_dis.shape
-        flat = self.normLayer(torch.cat([kl_dis, inner_sim], dim=-1).reshape(e * g, 2 * w))
+        with sharded_rows():  # train-mode moments over every rank's query rows
+            flat = self.normLayer(torch.cat([kl_dis, inner_sim], dim=-1).reshape(e * g, 2 * w))
         k = self.fcLayer.weight.reshape(2)
         return (k[0] * flat[:, :w] + k[1] * flat[:, w:]).reshape(e, g, w)
 
@@ -127,6 +130,7 @@ class LocalDescriptorMethod(MethodBase):
 
     model_type = ModelType.METRIC
     needs_feature_map = True
+    shardable = True
 
     def _logits(self, batch: EpisodeBatch, setting: EpisodeSetting) -> torch.Tensor:
         raise NotImplementedError

@@ -40,6 +40,7 @@ class MTLBaseLearner(nn.Module):
 @CLASSIFIERS.register("MTL")
 class MTL(MethodBase):
     model_type = ModelType.META
+    shardable = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True
 

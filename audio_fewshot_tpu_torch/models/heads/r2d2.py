@@ -84,7 +84,6 @@ class R2D2MCL(R2D2):
     config; the defaults are every reproduce config's (katz 0.5, γ 20,
     γ₂ 10)."""
 
-    shardable = False  # its Katz query weights are not audited over ranks
     needs_feature_map = True
 
     def __init__(self, emb_func, katz_factor: float = 0.5, gamma: float = 20.0,

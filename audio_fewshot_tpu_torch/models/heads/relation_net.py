@@ -7,7 +7,7 @@ of a 3×3 VALID conv, a BN on batch statistics (in train and in eval), ReLU
 and a 2×2 max pool where both sides are at least 2, then fc(→ 8) → ReLU →
 fc(→ 1).  The BNs' statistics come from the pairs of real query rows only
 (``sample_mask``), so the scores of real rows do not depend on bucket
-padding.  Parameters carry the reference torch names
+padding; over several ranks they span every rank's pairs, in eval too.  Parameters carry the reference torch names
 (``relation_layer.layers.{0,1,4,5}``, ``relation_layer.fc.{0,2}``).
 
 torch infers no shapes: ``fc.0``'s width comes from ``map_shape``.  At the
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import BatchNorm, Conv2d
 from .local_metrics import LocalDescriptorMethod
@@ -31,7 +32,8 @@ from .local_metrics import LocalDescriptorMethod
 
 class BatchStatBatchNorm(BatchNorm):
     """A BN that normalises with the batch statistics of the rows where
-    ``mask`` in train and in eval.  In train mode it also updates its running
+    ``mask`` in train and in eval, over every rank's rows inside
+    ``parallel.sharded_rows``.  In train mode it also updates its running
     statistics as flax does (they are kept, never read)."""
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -39,7 +41,7 @@ class BatchStatBatchNorm(BatchNorm):
             return super().forward(x, mask)
         if mask is None:
             mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-        return self._masked(x, mask)[0]
+        return self.batch_normalize(x, mask)
 
 
 def relation_map_hw(h: int, w: int) -> Tuple[int, int]:
@@ -108,5 +110,7 @@ class RelationNet(LocalDescriptorMethod):
         sup, qry = self.embed(batch)
         e, g = qry.shape[:2]
         pair_mask = (batch.query_mask > 0).reshape(-1).repeat_interleave(setting.way)
-        scores = self.relation_layer(self.pairs(qry, sup, setting.way, setting.shot), pair_mask)
+        with sharded_rows():  # the BNs' moments over every rank's real pairs
+            scores = self.relation_layer(self.pairs(qry, sup, setting.way, setting.shot),
+                                         pair_mask)
         return scores.reshape(e, g, setting.way)

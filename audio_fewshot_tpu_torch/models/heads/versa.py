@@ -13,10 +13,12 @@ counting 0.
 
 - The trunk's BN always normalises with batch statistics, in eval too,
   taken over the support and real query rows of ALL episodes of the batch
-  at once (padded query rows masked out); in training it also updates its
-  running statistics, which nothing reads (the reference's ``h.1``).
+  at once (padded query rows masked out), every rank's over several ranks;
+  in training it also updates its running statistics, which nothing reads
+  (the reference's ``h.1``).
 - The sampling noise comes from ``noise`` (``layers.GaussianNoise``); an
-  eval forward restarts it from its seed.
+  eval forward restarts it from its seed.  Over several ranks each rank
+  keeps its episodes' rows of the whole step's draw (``draw_rows``).
 
 Keys: ``h.0`` (the Linear), ``h.1`` (the BN), ``{weight,bias}_{mean,logvar}
 .layers.{0,2,4}`` (the reference's).
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...episode import EpisodeBatch, segment_targets
+from ...parallel.collectives import sharded_rows
 from ...registry import CLASSIFIERS
 from ..backbones.layers import BatchNorm1d, Dropout, GaussianNoise
 from ..base import EpisodeSetting, LossOutput, MethodBase, ModelType
@@ -39,15 +42,15 @@ from ..init import dense
 
 
 class BatchStatBatchNorm1d(BatchNorm1d):
-    """``BatchNorm1d`` on the masked batch statistics in train and eval; its
-    running statistics move in train mode only, as flax's ``BatchNorm``
-    with ``use_running_average=False`` under a mutable ``batch_stats``."""
+    """``BatchNorm1d`` on the masked batch statistics in train and eval (over
+    every rank's rows inside ``parallel.sharded_rows``); its running
+    statistics move in train mode only, as flax's ``BatchNorm`` with
+    ``use_running_average=False`` under a mutable ``batch_stats``."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        out, mean, var = self._masked(x, mask)
         if self.training:
-            self._update_running(mean, var)
-        return out
+            return super().forward(x, mask)
+        return self.batch_normalize(x, mask)
 
 
 class Predictor(nn.Module):
@@ -63,6 +66,7 @@ class Predictor(nn.Module):
 @CLASSIFIERS.register("VERSA")
 class VERSA(MethodBase):
     model_type = ModelType.META
+    shardable = True
     #: ``build_method`` passes the backbone's flat feature width as ``feat_dim``
     needs_feat_dim = True
 
@@ -87,7 +91,9 @@ class VERSA(MethodBase):
         rows = torch.cat([sup.reshape(-1, d), qry.reshape(-1, d)])
         mask = torch.cat([torch.ones(e * ws, dtype=torch.bool, device=rows.device),
                           (batch.query_mask > 0).reshape(-1)])
-        h = self.drop(F.relu(self.h[1](self.h[0](rows), mask)))
+        with sharded_rows():  # the trunk's moments over every rank's real rows
+            h = self.h[1](self.h[0](rows), mask)
+        h = self.drop(F.relu(h))
         sup_h, qry_h = h[:e * ws].reshape(e, ws, -1), h[e * ws:].reshape(e, g, -1)
         class_feat = sup_h.reshape(e, setting.way, setting.shot, -1).mean(dim=2)
         wm, wl = self.weight_mean(class_feat).mT, self.weight_logvar(class_feat).mT
@@ -98,7 +104,7 @@ class VERSA(MethodBase):
 
     def _samples(self, mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
         """``[sample_num, E, G, way]`` logits."""
-        eps = self.noise.draw((self.sample_num,) + tuple(mean.shape), mean)
+        eps = self.noise.draw_rows((self.sample_num,) + tuple(mean.shape), mean, axis=1)
         return mean + eps * torch.exp(0.5 * logvar)
 
     def _average(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,16 @@ def l2_dist_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(loss), torch.zeros_like(loss), loss)
 
 
+def label_smooth_ce(logits: torch.Tensor, targets: torch.Tensor,
+                    smoothing: float = 0.1) -> torch.Tensor:
+    """Label-smoothed cross-entropy: the mean over the batch of −Σ soft ·
+    log-softmax, soft = onehot · (1 − ``smoothing``) + ``smoothing`` / C."""
+    n = logits.shape[-1]
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+    soft = F.one_hot(targets.long(), n).to(logp.dtype) * (1.0 - smoothing) + smoothing / n
+    return -(soft * logp).sum(dim=-1).mean()
+
+
 def distill_kl_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
                     temperature: float = 4.0) -> torch.Tensor:
     """KL(teacher ∥ student) at temperature T, times T² (Hinton

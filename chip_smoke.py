@@ -212,7 +212,16 @@ Phases (any failure ends the script with a non-zero exit code):
    replicated over 2 ranks), held at the flagship's limits with its flat step
    ms printed, and the dry run's Baseline, MetabaselinePretrain, S2M2 (its
    mixed rows), FEAT, MeTAL (both loss-net paths), a ``Trainer``'s replicated
-   eval and IfslPretrain's featuring sums at its own limits.
+   eval and IfslPretrain's featuring sums at its own limits; and the 17
+   methods audited for ranks last: ``adm_5shot_iid_seed0`` at full width
+   (2 steps of 2 episodes, val and test 4 episodes 2 a step, float32, SGD;
+   ADM's head BatchNorm over the whole step's query rows) at the
+   flagship's limits with its val and test logits,
+   ``versa_5shot_iid_seed0``'s eval at full width (8 episodes, 4 a step,
+   ragged queries; VERSA's trunk BatchNorm on both ranks' real rows in
+   eval) on its logits and accuracies, and the dry run's 17 head scenarios
+   (``HEAD_CELLS``), its ragged eval of RelationNet and VERSA and ``Test``'s
+   replicated steps at its own limits.
 
 To keep the script inside its time limit with phases 23-24, phase 15's
 eval cut (phases 15 and 20-24) is one epoch of 32 test episodes, not 64,
@@ -224,7 +233,11 @@ W, left out; phase 16 trains both), ``EVAL_CUT`` is one epoch of 128 test
 episodes and ``HEAD_TRAIN_CUT`` one epoch of 10 train episodes; with the
 flat family's cells, phase 25 no longer times the bf16 step with and
 without ``deterministic`` nor phases 9 and 11's eval with and without
-``transfer_ahead`` (both settled: 47.48 / 46.71 ms, and within +-5 %).
+``transfer_ahead`` (both settled: 47.48 / 46.71 ms, and within +-5 %); with
+the heads' cells of phase 25, phases 20-22 evaluate one step of 16 test
+episodes (``LATE_EVAL_CUT``, not 32), and their training cells run val and
+test passes of 8 episodes (``LATE_TRAIN_CUT``, ``FLAT_TRAIN_CUT``; 16
+before).
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -334,9 +347,19 @@ SLICE10_FEATURES = {
     "DeepBDC_Pretrain": "resnet12Bdc's 2080 BDC features; BDC prototypes",
 }
 # one flat training epoch (7 steps of batch_size 128 over the 25 x 40 train
-# clips) with 16 val and test episodes, 4 a step (at 16 a step the passes'
-# 4496 segments would set the cell's peak memory, not the flat steps)
-FLAT_TRAIN_CUT = {"epoch": 1, "test_episode": 16}
+# clips) with 8 val and test episodes, 4 a step (at 16 a step the passes'
+# 4496 segments would set the cell's peak memory, not the flat steps; 16
+# episodes before the heads' cells of phase 25 were added, cut to keep the
+# script inside its time limit)
+FLAT_TRAIN_CUT = {"epoch": 1, "test_episode": 8}
+# phases 20-22's eval cut (16 test episodes, one step of 16, WRN's 4 of 4)
+# and their episodic training cells' (phase 13's with 8 val and test
+# episodes, at most 8 a step), cut from RESNET_EVAL_CUT's 32 and
+# HEAD_TRAIN_CUT's 16 when the
+# heads' cells of phase 25 were added: the whole smoke read 995 s of its
+# 1200 s on an H100 80GB HBM3 at 700 W, phases 20-22 386 s of it
+LATE_EVAL_CUT = {"test_episode": 16, "test_epoch": 1}
+LATE_TRAIN_CUT = {**HEAD_TRAIN_CUT, "test_episode": 8}
 FLAT_EVAL_EPISODES = 4
 # a flat train step's loss card vs CPU over the first rows of the first batch
 # (NOT the shipped 128: a resnet12 forward of 128 rows takes seconds on the CPU)
@@ -447,6 +470,21 @@ PARALLEL_TIMEOUT_S = 300
 PRETRAIN_ROOT = "synthetic:25:15"
 PRETRAIN_CUT = {"epoch": 1, "test_episode": 2}
 PRETRAIN_TIMED_STEPS = 2
+# phase 25's full-width cells of the heads audited for ranks last, on the
+# shipped Conv64F map (is_flatten and last_pool false), float32 with TF32
+# off: adm_5shot_iid_seed0 trained 2 steps of 2 episodes (the shipped
+# episode_size 1 cannot split over 2 ranks; ADM's head BatchNorm takes its
+# moments over the whole step's query rows), val and test 4 episodes, 2 a
+# step, SGD at lr 0.005 (the flagship cell's, for its reasons), 2 more timed
+# warm steps, held at the flagship's limits and its eval logits at
+# PROTO_LIMITS'; versa_5shot_iid_seed0 evaluated through Test (its trunk
+# BatchNorm takes batch statistics in eval, over both ranks' real rows): 8
+# test episodes, 4 a step (2 a rank), ragged queries at max_segments_per_clip
+# 6 (the eval cells' cut), its logits at PROTO_LIMITS' and its accuracies at
+# the flagship's
+HEAD_RANKS_TRAIN_CUT = {"epoch": 1, "train_episode": 4, "test_episode": 4}
+HEAD_RANKS_EVAL_CUT = {"test_episode": 8, "test_epoch": 1, "test_episode_size": 4}
+HEAD_RANKS_TIMED_STEPS = 2
 
 # the DropBlock counters at the end of a shipped 30 x 1000-episode run
 RAMP_START = 30000
@@ -1253,7 +1291,7 @@ def slice10_cell(head: str, g: int, label: str = "slice10", what: str = None) ->
     conv = SLICE_MODELS[head]["backbone"]["name"] == "Conv64F"
     torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    hcfg = slice_config(classifier=head, **(EVAL_CUT if conv else RESNET_EVAL_CUT))
+    hcfg = slice_config(classifier=head, **(EVAL_CUT if conv else LATE_EVAL_CUT))
     eps, ms, peak_gib, acc, eval_launches = run_test(hcfg)
     eval_calls = hcfg["test_epoch"] * hcfg["test_episode"] // hcfg["test_episode_size"] + 1
     print(f"[{label}-eval] {hcfg['tag']} at full width ({what or SLICE10_FEATURES[head]}), bf16 "
@@ -1390,7 +1428,7 @@ def renet_cells() -> None:
     t0 = time.time()
     torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    hcfg = slice_config(classifier="RENet", **RESNET_EVAL_CUT)
+    hcfg = slice_config(classifier="RENet", **LATE_EVAL_CUT)
     eps, ms, peak_gib, acc, launches = run_test(hcfg)
     print(f"[slice11-eval] {hcfg['tag']} at full width ({RENET_FEATURES}), bf16 backbone, "
           f"fp32 head, {hcfg['test_episode_size']} episodes a step, {hcfg['test_epoch']} "
@@ -1424,7 +1462,7 @@ def renet_cells() -> None:
             raise AssertionError(f"float32 {cell} train loss disagrees on the card and the CPU")
         torch.backends.cudnn.allow_tf32 = True
         with tempfile.TemporaryDirectory() as result_root:
-            tcfg = train.slice_config(result_root, classifier=cell, **HEAD_TRAIN_CUT)
+            tcfg = train.slice_config(result_root, classifier=cell, **LATE_TRAIN_CUT)
             rows, peak_gib, launches = run_trainer(tcfg)
         for r in rows:
             flat = (f" + a flat batch of {tcfg['batch_size']} (not shipped traffic)"
@@ -1519,7 +1557,7 @@ def slice12_cell(cell: str) -> tuple:
     bdc = cell.startswith("DeepBDC")
     torch.backends.cudnn.allow_tf32 = True  # the bf16 runs' own defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    hcfg = slice_config(classifier=cell, **RESNET_EVAL_CUT)
+    hcfg = slice_config(classifier=cell, **LATE_EVAL_CUT)
     eps, ms, peak_gib, acc, eval_launches = run_test(hcfg)
     want_eval = (bdc_backbone_calls(hcfg), 0) if bdc else (0, 0)
     print(f"[slice12-eval] {hcfg['tag']} at full width ({SLICE12_CELLS[cell]}), bf16 backbone, "
@@ -1545,8 +1583,8 @@ def slice12_cell(cell: str) -> tuple:
         raise AssertionError(f"float32 {cell} card logits disagree with the CPU")
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as result_root:
-        tcfg = train.slice_config(result_root, classifier=cell, **HEAD_TRAIN_CUT)
-        tcfg["test_episode_size"] = hcfg["test_episode_size"]
+        tcfg = train.slice_config(result_root, classifier=cell, **LATE_TRAIN_CUT)
+        tcfg["test_episode_size"] = min(hcfg["test_episode_size"], tcfg["test_episode"])
         rows, peak_gib, train_launches = run_trainer(tcfg)
     steps = sum(len(r["train_losses"]) for r in rows)
     val_steps = 2 * -(-tcfg["test_episode"] // tcfg["test_episode_size"])
@@ -1622,7 +1660,7 @@ def ifsl_cycle(g: int) -> None:
                 and np.isfinite(means).all()):
             raise AssertionError(f"featuring wrote {means.shape}")
         dcfg = train.slice_config(root, classifier="DMatchingNet:seed42",
-                                  test_episode=RESNET_EVAL_CUT["test_episode"])
+                                  test_episode=LATE_EVAL_CUT["test_episode"])
         dcfg["classifier"]["kwargs"]["ifsl_param"].update(feature_path=feature_path,
                                                           cls_path=parts["classifier"])
         dcfg.update(pretrain_path=parts["emb_func"], test_episode_size=16)
@@ -1852,13 +1890,33 @@ FAULTS = {
 }
 
 
-def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None) -> dict:
+def recorded_logits(method) -> list:
+    """A list that receives every later forward's logits of ``method``, in
+    the one-rank order (gathered over the ranks where its rows span them),
+    on the host."""
+    from audio_fewshot_tpu_torch.parallel import gather_rows, sharded_world
+
+    out = []
+    forward = method.forward
+
+    def record(*args, **kwargs):
+        logits = forward(*args, **kwargs)
+        out.append(gather_rows(logits.detach(), sharded_world()).cpu())
+        return logits
+
+    method.forward = record
+    return out
+
+
+def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None,
+                  logits: bool = False) -> dict:
     """The flagship training cell through ``Trainer`` (its ``train_loop``:
     the steps, a val and a test pass, the checkpoints on rank 0): the
     history, the first step's loss, every parameter before the loop, after
     its first step and after it, each as one vector, and
-    ``collective_times`` of ``timed_steps`` more (warm) steps.  ``fault``
-    (a key of ``FAULTS``) breaks the sharding for a control run."""
+    ``collective_times`` of ``timed_steps`` more (warm) steps; with
+    ``logits``, those of its val and test steps.  ``fault`` (a key of
+    ``FAULTS``) breaks the sharding for a control run."""
     import torch
 
     from audio_fewshot_tpu_torch import train
@@ -1879,6 +1937,7 @@ def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None) -> dict:
         return out
 
     trainer._train_step = first_step
+    eval_logits = recorded_logits(trainer.method) if logits else None
     patched = {"gradients": (train, "all_reduce_gradients", lambda params_, world_: None),
                "batchnorm": (layers, "rows_sharded", lambda: False)}.get(fault)
     saved = patched and getattr(patched[0], patched[1])
@@ -1894,13 +1953,28 @@ def flagship_cell(world, cfg: dict, timed_steps: int = 3, fault=None) -> dict:
             setattr(patched[0], patched[1], saved)
     trainer._train_step = step
     return {"history": trainer.history, "params0": start, "first": first, "params": params(),
-            "wall": wall,
+            "wall": wall, "logits": eval_logits,
             "collectives": collective_times(trainer, timed_steps) if timed_steps else None}
+
+
+def eval_cell(world, cfg: dict) -> dict:
+    """A full-width eval through ``Test`` at the seed's weights: every
+    step's logits (the warm-up's first), the per-episode accuracies, the
+    mean, eval eps/s and the loop's wall."""
+    from audio_fewshot_tpu_torch.eval import Test
+
+    test = Test(0, copy.deepcopy(cfg), None, device=world.device)
+    logits = recorded_logits(test.method)
+    t0 = time.time()
+    mean, _ = test.test_loop()
+    _synchronize(world.device)
+    return {"logits": logits, "episode_accs": test.episode_accs, "mean": mean,
+            "eps": test.epoch_eps, "wall": time.time() - t0}
 
 
 #: phase 25's scenarios beside the dry run's (module-level: the ranks
 #: import this script by name and look them up)
-PARALLEL_SCENARIOS = {"flagship_cell": flagship_cell}
+PARALLEL_SCENARIOS = {"flagship_cell": flagship_cell, "eval_cell": eval_cell}
 
 
 def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
@@ -1911,8 +1985,12 @@ def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
     ``PARALLEL_EVAL_CUT``, float32) over a random-weight checkpoint from the
     seed; the full-width DeepBDC_Pretrain flat cell (``PRETRAIN_CUT``);
     the dry run's flat, FEAT and MeTAL scenarios (``FLAT_PLAN``, its
-    replicated eval and featuring pass under ``root``); with ``controls``,
-    the flagship's training cell again under each of ``FAULTS``."""
+    replicated eval and featuring pass under ``root``); the full-width ADM
+    training and VERSA eval cells (``HEAD_RANKS_TRAIN_CUT``,
+    ``HEAD_RANKS_EVAL_CUT``) and the dry run's 17 heads of ``HEAD_CELLS``
+    with its ragged eval and ``Test``'s replicated steps (``head_plan``);
+    with ``controls``, the flagship's training cell again under each of
+    ``FAULTS``."""
     from audio_fewshot_tpu_torch import dryrun_multigpu as dry
     from audio_fewshot_tpu_torch import train
     from audio_fewshot_tpu_torch.eval import slice_config
@@ -1936,10 +2014,18 @@ def parallel_cells(root: str, tag: str, controls: bool = False) -> dict:
                                   classifier="DeepBDC_Pretrain", **PRETRAIN_CUT)
     pretrain.update(data_root=PRETRAIN_ROOT, precision="fp32",
                     optimizer={"name": "SGD", "kwargs": {"lr": 0.005}, "other": None})
+    adm = train.slice_config(os.path.join(root, f"{tag}_adm"), classifier="ADM",
+                             **HEAD_RANKS_TRAIN_CUT)
+    adm.update(episode_size=2, test_episode_size=2, precision="fp32",
+               optimizer={"name": "SGD", "kwargs": {"lr": 0.005}, "other": None})
+    versa = slice_config(classifier="VERSA", precision="fp32", **HEAD_RANKS_EVAL_CUT)
     plan = {"proto_train": {}, "flagship_cell": {"cfg": training(tag)},
             "tta_eval": {"cfg": ecfg, "result_path": weights},
             "flagship_cell:pretrain": {"cfg": pretrain, "timed_steps": PRETRAIN_TIMED_STEPS},
-            **dry.FLAT_PLAN, **dry.flat_root_plan(os.path.join(root, tag))}
+            **dry.FLAT_PLAN, **dry.flat_root_plan(os.path.join(root, tag)),
+            "flagship_cell:adm": {"cfg": adm, "timed_steps": HEAD_RANKS_TIMED_STEPS,
+                                  "logits": True},
+            "eval_cell:versa": {"cfg": versa}, **dry.head_plan(os.path.join(root, tag))}
     for fault in FAULTS if controls else ():
         plan[f"flagship_cell:{fault}"] = {"cfg": training(f"{tag}_{fault}"), "timed_steps": 0,
                                           "fault": fault}
@@ -2025,6 +2111,7 @@ def parallel_compare(label: str, many: dict, one: dict) -> None:
             and dacc.mean() <= PARALLEL_ACC_MEAN):
         raise AssertionError(f"{label} disagrees with the 1-rank run")
     flat_compare(label, many, one)
+    head_compare(label, many, one)
     for fault, what in FAULTS.items():
         key = f"flagship_cell:{fault}"
         if key not in many:
@@ -2076,6 +2163,82 @@ def flat_compare(label: str, many: dict, one: dict) -> None:
         raise AssertionError(f"{label}: the flat family's cells disagree with the 1-rank run")
 
 
+def head_compare(label: str, many: dict, one: dict) -> None:
+    """The cells of the heads audited for ranks last, over ranks against 1
+    rank: the dry run's 17 heads, ragged eval and ``Test``'s replicated
+    steps at its own limits; the full-width ADM cell at the flagship's
+    (and its val and test logits at ``PROTO_LIMITS``'); the full-width VERSA
+    eval's logits at ``PROTO_LIMITS``' and its accuracies at the
+    flagship's; fails past them."""
+    import torch
+
+    from audio_fewshot_tpu_torch import dryrun_multigpu as dry
+
+    names = list(dry.head_plan(""))
+    gaps = {n: dry.mismatch(dry.compared(n, many[n]), dry.compared(n, one[n])) for n in names}
+    print(f"[parallel] {label} against 1 rank, the dry run's 17 heads, ragged eval and Test's "
+          f"replicated steps (each gap as a multiple of its limit: rtol 1e-3 / atol 5e-4, eval "
+          f"logits atol 1e-2) { {k: f'{v:.3e}' for k, v in gaps.items()} }; seconds over the "
+          f"ranks { {k: round(many[k + ':s'], 2) for k in names} }", flush=True)
+    for n in (n for n, v in gaps.items() if v > 1.0):
+        print(f"[parallel] {label}: {n} past its limits, by key "
+              f"{ {k: f'{dry.mismatch(many[n][k], one[n][k], key=k):.3e}' for k in one[n]} }; "
+              f"losses {many[n].get('losses')} against {one[n].get('losses')}", flush=True)
+    rtol, atol = PROTO_LIMITS["logits"]
+    adm, adm_one = many["flagship_cell:adm"], one["flagship_cell:adm"]
+    g = flagship_gaps(adm, adm_one)
+    adm_logits = dry.mismatch(adm["logits"], adm_one["logits"], rtol, atol)
+    adm_acc = max(abs(r[k] - q[k]) for r, q in zip(adm["history"], adm_one["history"],
+                                                   strict=True)
+                  for k in ("val_acc", "test_acc"))
+    print(f"[parallel] {label} against 1 rank, adm_5shot_iid_seed0 at full width (2 steps of 2 "
+          f"episodes, float32, SGD): losses {[round(v, 6) for v in g['losses']]} against "
+          f"{[round(v, 6) for v in g['ref_losses']]}, rel {[f'{v:.2e}' for v in g['rel']]} "
+          f"(limits {PARALLEL_FIRST_LOSS_RTOL:g} first, {PARALLEL_LOSS_RTOL:g}); every parameter "
+          f"after the first step |Δθ| / |1 rank's first update| {g['first_update']:.3e} (limit "
+          f"{PARALLEL_FIRST_UPDATE_REL:g}), after the last |Δθ| / |1 rank's update| "
+          f"{g['update']:.3e} (limit {PARALLEL_UPDATE_REL:g}); val and test logits of "
+          f"{sum(len(x) for x in adm['logits'])} episodes: gap {adm_logits:.3e} of the limit "
+          f"(rtol {rtol:g}, atol {atol:g}); val / test accuracy max |Δ| {adm_acc:.3f} (limit "
+          f"{PARALLEL_ACC_MAX:g})", flush=True)
+    versa, versa_one = many["eval_cell:versa"], one["eval_cell:versa"]
+    versa_logits = dry.mismatch(versa["logits"], versa_one["logits"], rtol, atol)
+    acc = torch.tensor(versa["episode_accs"][0])
+    dacc = (acc - torch.tensor(versa_one["episode_accs"][0])).abs()
+    print(f"[parallel] {label} against 1 rank, versa_5shot_iid_seed0 eval at full width ("
+          f"{len(acc)} episodes, ragged queries, float32): logits of every step (the warm-up's "
+          f"too) gap {versa_logits:.3e} of the limit (rtol {rtol:g}, atol {atol:g}); "
+          f"per-episode accuracies max |Δ| {dacc.max().item():.3f}, mean {dacc.mean().item():.4f}"
+          f" (limits {PARALLEL_ACC_MAX:g}, {PARALLEL_ACC_MEAN:g})", flush=True)
+    if not (max(gaps.values()) <= 1.0 and first_step_held(g)
+            and max(g["rel"]) <= PARALLEL_LOSS_RTOL and g["update"] <= PARALLEL_UPDATE_REL
+            and adm_logits <= 1.0 and adm_acc <= PARALLEL_ACC_MAX and versa_logits <= 1.0
+            and dacc.max() <= PARALLEL_ACC_MAX and dacc.mean() <= PARALLEL_ACC_MEAN):
+        raise AssertionError(f"{label}: the heads' cells disagree with the 1-rank run")
+
+
+def head_report(label: str, result: dict, smi: str) -> None:
+    """The full-width ADM and VERSA cells of a run: ADM's ms a step and a
+    warm step, its losses and accuracies; VERSA's eval eps/s, accuracy and
+    wall; fails on a value that is not finite."""
+    adm, versa = result["flagship_cell:adm"], result["eval_cell:versa"]
+    losses = [v for r in adm["history"] for v in r["train_losses"]]
+    values = losses + [adm["history"][-1][k] for k in ("val_acc", "test_acc")] + [versa["mean"]]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{label}: non-finite ADM loss or accuracy, or VERSA accuracy")
+    print(f"[parallel] {label}: adm_5shot_iid_seed0 at full width, a step of 2 episodes: "
+          f"{adm['history'][0]['step_ms']:.1f} ms ({len(losses)} steps, the first cold; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}), {adm['collectives']['step_ms']:.1f} ms a "
+          f"warm step ({HEAD_RANKS_TIMED_STEPS} more, between syncs; the gradient all-reduce "
+          f"{adm['collectives']['grad_ms']:.1f} ms, the {adm['collectives']['other_calls']} "
+          f"small ones {adm['collectives']['other_ms']:.1f} ms); its training, val and test "
+          f"{adm['wall']:.1f} s, val / test accuracy {adm['history'][-1]['val_acc']:.3f} / "
+          f"{adm['history'][-1]['test_acc']:.3f}; versa_5shot_iid_seed0 eval at full width "
+          f"({HEAD_RANKS_EVAL_CUT['test_episode_size']} episodes a step): eps/s "
+          f"{[round(v, 2) for v in versa['eps']]}, accuracy {versa['mean']:.3f}, its loop "
+          f"{versa['wall']:.1f} s; {smi}", flush=True)
+
+
 def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
     """One line per run: ranks, backend, wall, train ms a step, eval eps/s;
     the BDC launches summed over the ranks (each rank must launch both, the
@@ -2109,6 +2272,7 @@ def parallel_report(label: str, results: list, wall: float, smi: str) -> tuple:
           f"small ones {pre['collectives']['other_ms']:.1f} ms); its training, val and test "
           f"{pre['wall']:.1f} s, val / test accuracy {pre['history'][-1]['val_acc']:.3f} / "
           f"{pre['history'][-1]['test_acc']:.3f}; {smi}", flush=True)
+    head_report(label, results[0], smi)
     return sum(f for f, _ in launches), sum(b for _, b in launches)
 
 

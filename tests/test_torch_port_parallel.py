@@ -468,12 +468,14 @@ def test_deterministic_sets_the_cudnn_flags_both_ways():
 
 def test_a_method_not_audited_for_ranks_is_refused(monkeypatch):
     """Above one rank, ``Test`` and ``Trainer`` refuse a method whose step
-    was not audited for a sharded episode axis, naming it."""
+    was not audited for a sharded episode axis, naming it (every registered
+    method is audited: ADM here stands for one that is not)."""
     from audio_fewshot_tpu_torch import eval as port_eval
 
     monkeypatch.setattr(port_eval.dist, "is_initialized", lambda: True)
     monkeypatch.setattr(port_eval.dist, "get_world_size", lambda: 2)
     init_seed(0)
     method = build_method(dry.proto_config(classifier={"name": "ADM", "kwargs": {"n_k": 3}}))
+    monkeypatch.setattr(type(method), "shardable", False)
     with pytest.raises(ValueError, match="ADM does not run over 2 ranks"):
         port_eval.world_for({"classifier": {"name": "ADM"}}, method, torch.device("cpu"), {})
