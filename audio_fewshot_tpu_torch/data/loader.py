@@ -38,6 +38,7 @@ from ..episode import (
     pack_ragged_episode_indices,
 )
 from ..models.base import ModelType
+from ..utils.spans import span
 from .dataset import (
     DEFAULT_SEGMENT_FRAMES,
     SpectrogramDataset,
@@ -318,7 +319,9 @@ class EpisodicLoader:
         plans_iter = self.sampler.epoch(epoch_idx)
         if self.prefetch <= 0:
             for plans in plans_iter:
-                yield self._build_batch(plans, rng)
+                with span("afs.data"), span("afs.data.build"):
+                    batch = self._build_batch(plans, rng)
+                yield batch
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -339,7 +342,9 @@ class EpisodicLoader:
         def worker():
             try:
                 for plans in plans_iter:
-                    if not put(self._build_batch(plans, rng)):
+                    with span("afs.data.build"):
+                        batch = self._build_batch(plans, rng)
+                    if not put(batch):
                         return
                 put(sentinel)
             except BaseException as exc:  # handed to the consumer, which raises it
@@ -349,15 +354,19 @@ class EpisodicLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("afs.data"):
+                    item = q.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):
                     raise item
                 yield item
         finally:
-            stop.set()
-            t.join(timeout=5.0)
+            # the caller waits on the data layer here too: a worker blocked
+            # on a full queue sees ``stop`` at its next try
+            with span("afs.data"):
+                stop.set()
+                t.join(timeout=5.0)
 
     def __iter__(self) -> Iterator[EpisodeBatch]:
         return self.epoch(0)

@@ -21,6 +21,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils.spans import span
+
 
 def _to_tensor(x: Any, device: torch.device, float_dtype=None) -> Any:
     """numpy / tensor leaf → tensor on ``device``.  Integer leaves become
@@ -37,6 +39,18 @@ def _to_tensor(x: Any, device: torch.device, float_dtype=None) -> Any:
     if x.dtype.is_floating_point:
         return x.to(dtype=float_dtype or torch.float32).to(device, non_blocking=True)
     return x.to(device, non_blocking=True).to(torch.int64)
+
+
+def _real_rows(batch: Any, support: Any) -> Optional[int]:
+    """Support rows plus valid query segments of a batch about to be copied,
+    summed from its host mask; None where the mask is already on a device
+    (counting it there would wait for the device)."""
+    if batch.real_rows is not None:
+        return batch.real_rows
+    mask = batch.query_mask
+    if isinstance(mask, torch.Tensor) and mask.device.type != "cpu":
+        return None
+    return int(support.shape[0] * support.shape[1] + np.asarray(mask).sum())
 
 
 @dataclass
@@ -63,10 +77,18 @@ class EpisodeBatch:
     support_target: Any
     query_target: Any
     global_target: Optional[Any] = None
+    #: (not a field) support rows plus valid query segments, counted from
+    #: the host mask by ``to``; None on a host batch
+    real_rows = None
 
     @property
     def num_episodes(self) -> int:
         return self.support.shape[0]
+
+    @property
+    def rows(self) -> int:
+        """Rows the backbone computes: every support row and query slot."""
+        return self.num_episodes * (self.support.shape[1] + self.query.shape[1])
 
     @property
     def num_query_clips(self) -> int:
@@ -88,8 +110,10 @@ class EpisodeBatch:
             t = _to_tensor(x, device, transfer_dtype)
             return t.float() if t is not None and t.dtype.is_floating_point else t
 
-        return EpisodeBatch(**{f.name: put(getattr(self, f.name))
-                               for f in dataclasses.fields(self)})
+        out = EpisodeBatch(**{f.name: put(getattr(self, f.name))
+                              for f in dataclasses.fields(self)})
+        out.real_rows = _real_rows(self, self.support)
+        return out
 
 
 @dataclass
@@ -105,15 +129,24 @@ class IndexedEpisodeBatch:
     support_target: Any  # [E, W*S]
     query_target: Any  # [E, W*Q]
     global_target: Optional[Any] = None
+    #: (not a field) as ``EpisodeBatch.real_rows``
+    real_rows = None
 
     @property
     def num_episodes(self) -> int:
         return self.support_idx.shape[0]
 
+    @property
+    def rows(self) -> int:
+        """Rows the backbone computes: every support row and query slot."""
+        return self.num_episodes * (self.support_idx.shape[1] + self.query_idx.shape[1])
+
     def to(self, device) -> "IndexedEpisodeBatch":
         device = torch.device(device)
-        return IndexedEpisodeBatch(**{f.name: _to_tensor(getattr(self, f.name), device)
-                                      for f in dataclasses.fields(self)})
+        out = IndexedEpisodeBatch(**{f.name: _to_tensor(getattr(self, f.name), device)
+                                     for f in dataclasses.fields(self)})
+        out.real_rows = _real_rows(self, self.support_idx)
+        return out
 
 
 @dataclass
@@ -318,15 +351,16 @@ def materialize_episode_batch(batch, bank: torch.Tensor) -> EpisodeBatch:
     so the gather moves half the bytes.  An ``EpisodeBatch`` passes through."""
     if isinstance(batch, EpisodeBatch):
         return batch
-    seg = bank.shape[1:]
-    support = bank.index_select(0, batch.support_idx.reshape(-1))
-    query = bank.index_select(0, batch.query_idx.reshape(-1))
-    support = support.float().reshape(tuple(batch.support_idx.shape) + seg)
-    query = query.float().reshape(tuple(batch.query_idx.shape) + seg)
-    # padded rows gathered bank row 0: zero them, so the batch equals the
-    # zero-padded payload batch exactly
-    mask = batch.query_mask.to(query.dtype)
-    query = query * mask.reshape(mask.shape + (1,) * (query.dim() - 2))
+    with span("afs.bank_gather"):
+        seg = bank.shape[1:]
+        support = bank.index_select(0, batch.support_idx.reshape(-1))
+        query = bank.index_select(0, batch.query_idx.reshape(-1))
+        support = support.float().reshape(tuple(batch.support_idx.shape) + seg)
+        query = query.float().reshape(tuple(batch.query_idx.shape) + seg)
+        # padded rows gathered bank row 0: zero them, so the batch equals the
+        # zero-padded payload batch exactly
+        mask = batch.query_mask.to(query.dtype)
+        query = query * mask.reshape(mask.shape + (1,) * (query.dim() - 2))
     return EpisodeBatch(
         support=support,
         query=query,

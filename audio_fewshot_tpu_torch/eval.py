@@ -53,6 +53,7 @@ from .utils import init_logger, init_seed, mean_confidence_interval, resolve_dev
 from .utils.aggregate import clip_vote_counts
 from .utils.checkpoint import BEST, load_model
 from .utils.features import dump_episode_features
+from .utils.spans import count_rows, span
 
 
 #: the model part of each shipped config that a chip cell runs (the
@@ -530,18 +531,22 @@ class Test:
     def _device_step(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Per-episode accuracy ``[E / W]`` (on the device) of this rank's
         shard of a step, already on the device; with the energy-OOD TTA on,
-        its re-vote with draws from ``generator``."""
-        if self.enhance_via_energy:
-            return tta_eval_step(
-                self.method, batch, self.setting, generator,
-                tta_mean=self.tta_mean, tta_std=self.tta_std,
-                num_augmentations=self.num_augmentations,
-                tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank,
-                world=self.step_world)
-        if self.test_bank is not None:
-            batch = materialize_episode_batch(batch, self.test_bank)
-        seg_logits = self.method(batch, self.setting)
-        return self.method.eval_episode_accuracy(seg_logits, batch)
+        its re-vote with draws from ``generator``.  Counts the step's rows
+        (``utils.spans``; the TTA's augmented passes not among them)."""
+        with span("afs.step"):
+            count_rows(batch)
+            if self.enhance_via_energy:
+                return tta_eval_step(
+                    self.method, batch, self.setting, generator,
+                    tta_mean=self.tta_mean, tta_std=self.tta_std,
+                    num_augmentations=self.num_augmentations,
+                    tta_segments_per_clip=self.tta_segments_per_clip, bank=self.test_bank,
+                    world=self.step_world)
+            if self.test_bank is not None:
+                batch = materialize_episode_batch(batch, self.test_bank)
+            with span("afs.head"):
+                seg_logits = self.method(batch, self.setting)
+            return self.method.eval_episode_accuracy(seg_logits, batch)
 
     @torch.no_grad()
     def test_loop(self) -> Tuple[float, float]:

@@ -24,6 +24,7 @@ from torch import nn
 from ..episode import EpisodeBatch, segment_targets
 from ..parallel.collectives import sharded_rows
 from ..utils.aggregate import majority_vote, segment_accuracy
+from ..utils.spans import span
 
 
 class ModelType(enum.Enum):
@@ -99,7 +100,8 @@ class MethodBase(nn.Module):
         e = batch.num_episodes
         ws = batch.support.shape[1]
         g = batch.query.shape[1]
-        with sharded_rows():  # the batch statistics span every rank's episodes
+        # the batch statistics span every rank's episodes
+        with sharded_rows(), span("afs.backbone"):
             feats = self.emb_func(self._flatten_inputs(batch))
         if not self.needs_feature_map:
             feats = feats.reshape(feats.shape[0], -1)
@@ -119,7 +121,8 @@ class MethodBase(nn.Module):
 
     def eval_episode_accuracy(self, seg_logits: torch.Tensor, batch: EpisodeBatch) -> torch.Tensor:
         """Per-episode clip-level majority-vote accuracy ``[E]`` in percent."""
-        preds = majority_vote(
-            seg_logits, batch.query_clip, batch.query_mask, batch.num_query_clips
-        )
-        return (preds == batch.query_target).float().mean(dim=-1) * 100.0
+        with span("afs.vote"):
+            preds = majority_vote(
+                seg_logits, batch.query_clip, batch.query_mask, batch.num_query_clips
+            )
+            return (preds == batch.query_target).float().mean(dim=-1) * 100.0

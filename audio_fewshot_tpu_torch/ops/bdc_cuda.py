@@ -41,6 +41,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..utils.spans import span
 from .bdc import bdc_pool, bdc_pool_triu_vjp, triuvec
 from .build import build_library
 
@@ -172,16 +173,17 @@ def bdc_pool_triu(
     """``[B, d, M]`` → ``triuvec(bdc_pool(x, log_t))`` of shape
     ``[B, d(d+1)/2]``; with ``return_full`` also the ``[B, d, d]`` matrix
     (which has no backward on the card)."""
-    if x.device.type == "cpu":
-        mat = bdc_pool(x, log_t)
-        tri = triuvec(mat)
-        return (tri, mat) if return_full else tri
-    if x.device.type != "cuda":
-        raise ValueError(f"bdc_pool_triu runs on cpu or cuda, not {x.device}")
-    check_kernel_inputs(x, log_t, return_full)
-    if torch.is_grad_enabled() and (x.requires_grad or log_t.requires_grad):
-        return BdcPoolTriu.apply(x, log_t)
-    return _forward(x, log_t, return_full)
+    with span("afs.bdc_pool"):
+        if x.device.type == "cpu":
+            mat = bdc_pool(x, log_t)
+            tri = triuvec(mat)
+            return (tri, mat) if return_full else tri
+        if x.device.type != "cuda":
+            raise ValueError(f"bdc_pool_triu runs on cpu or cuda, not {x.device}")
+        check_kernel_inputs(x, log_t, return_full)
+        if torch.is_grad_enabled() and (x.requires_grad or log_t.requires_grad):
+            return BdcPoolTriu.apply(x, log_t)
+        return _forward(x, log_t, return_full)
 
 
 def bdc_pool_triu_backward(

@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..episode import DualBatch, IndexedEpisodeBatch, IndexedFlatBatch
+from ..utils.spans import span
 from .collectives import World
 
 #: seconds a collective (and the rendezvous) may wait before it fails
@@ -178,9 +179,10 @@ def shard_batch(batch: Any, world: Optional[World], transfer_dtype=None,
     ``DualBatch`` or their bank-row forms, on its device (``transfer_dtype``:
     the float payload's wire dtype, upcast to float32 there).  ``world``
     None: the whole batch on ``device``."""
-    if world is None:
-        return _put(batch, device, transfer_dtype)
-    return _put(_slice_host(batch, world), world.device, transfer_dtype)
+    with span("afs.transfer"):
+        if world is None:
+            return _put(batch, device, transfer_dtype)
+        return _put(_slice_host(batch, world), world.device, transfer_dtype)
 
 
 def _pinned(batch: Any, transfer_dtype=None) -> Any:
@@ -228,19 +230,21 @@ def transfer_ahead(batches: Iterable[Any], world: World, transfer_dtype=None) ->
     copy_stream = torch.cuda.Stream(world.device)
 
     def put(b):
-        local = _pinned(_slice_host(b, world), transfer_dtype)
-        with torch.cuda.stream(copy_stream):
-            dev = _put(local, world.device, transfer_dtype)
-            done = torch.cuda.Event()
-            done.record(copy_stream)
+        with span("afs.transfer"):
+            local = _pinned(_slice_host(b, world), transfer_dtype)
+            with torch.cuda.stream(copy_stream):
+                dev = _put(local, world.device, transfer_dtype)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
         return dev, done
 
     def ready(item):
         dev, done = item
-        compute = torch.cuda.current_stream(world.device)
-        compute.wait_event(done)
-        for t in _tensors(dev):  # the allocator must not reuse them early
-            t.record_stream(compute)
+        with span("afs.transfer"):
+            compute = torch.cuda.current_stream(world.device)
+            compute.wait_event(done)
+            for t in _tensors(dev):  # the allocator must not reuse them early
+                t.record_stream(compute)
         return dev
 
     try:

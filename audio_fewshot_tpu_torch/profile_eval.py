@@ -9,8 +9,10 @@ of a backbone swapped in; each at [1, 128, 157] segments, 16 episodes per
 step or the cell's own count, bf16) through ``Test``, warms
 up, times ``--steps`` eval steps without the profiler, then runs them again
 under ``torch.profiler`` and prints the device time by kernel category and
-the top kernels, the device-busy share of the window, and the step times
-with and without the profiler.  Needs a CUDA device.
+the top kernels, the device-busy share of the window, the step times
+with and without the profiler, and the device time by the program's span
+(``afs.bank_gather``, ``afs.backbone``, ``afs.bdc_pool``, ``afs.head``,
+``afs.vote``: ``utils/spans.py``).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -76,6 +78,29 @@ def report(prof, wall_us: float, header: str) -> None:
         print(f"  {us / 1e3:10.2f} {count:6d}  {name[:110]}")
 
 
+def report_spans(prof) -> None:
+    """Print the device time of the kernels launched inside each ``afs.*``
+    span (``utils/spans.py``), each kernel given to the innermost span
+    around the op that launched it, wherever the kernel ran."""
+    by_span = defaultdict(float)
+    for evt in prof.events():
+        # kernels belong to torch ops and host spans: a CUDA runtime event
+        # whose correlation id equals an op's holds a copy of its kernels
+        if evt.device_type != DeviceType.CPU or not (evt.is_user_annotation or "::" in evt.name):
+            continue
+        # the spans' own device-side twins are no kernels
+        us = sum(k.duration for k in evt.kernels if not k.name.startswith("afs."))
+        if not us:
+            continue
+        span = evt
+        while span is not None and not span.name.startswith("afs."):
+            span = span.cpu_parent
+        by_span[span.name if span is not None else "(outside the spans)"] += us
+    print("device ms by span (launched inside it, its child spans apart):")
+    for name, us in sorted(by_span.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:24s} {us / 1e3:10.2f} ms")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=4)
@@ -105,6 +130,7 @@ def main(argv=None) -> int:
     report(prof, wall_us, f"{args.classifier}: {len(batches)} eval steps of "
            f"{cfg['test_episode_size']} episodes "
            f"({wall_us / 1e3 / len(batches):.1f} ms/step; {plain_ms:.1f} without the profiler)")
+    report_spans(prof)
     return 0
 
 

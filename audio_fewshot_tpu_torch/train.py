@@ -20,7 +20,8 @@ epochs.  On a CLAP encoder (``CLAPBackbone``, or ``is_clap``) the backbone's
 ``pretrain_path`` and resume.  ``profile_steps`` traces train steps
 [``profile_start``, ``profile_start + profile_steps``) of epoch 0 with
 ``torch.profiler`` (CPU, and CUDA on the card) into a Chrome trace under
-``<log_dir>/profile/``.
+``<log_dir>/profile/``, with the program's ``afs.*`` spans of every thread
+(``utils/spans.py``: the loader's, the copy's, the backbone's).
 
 Over several ranks (``torchrun``, or ``run_trainer --nproc``; see
 ``parallel``) each rank trains on its contiguous shard of every step's
@@ -72,6 +73,7 @@ from .parallel import (World, all_reduce_gradients, all_reduce_mean, gather_rows
 from .utils import init_logger, init_seed, mean_confidence_interval, resolve_device
 from .utils.checkpoint import LAST, SaveType, load_last, load_part, save_model
 from .utils.meters import AverageMeter, TensorboardWriter
+from .utils.spans import every_thread
 
 
 def slice_config(result_root: str, classifier: str = "DeepBDC", epoch: int = 2,
@@ -525,7 +527,8 @@ class Trainer:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
+        # every thread: the loader's prefetch worker records afs.data.build
+        profiler = torch.profiler.profile(activities=activities, **every_thread())
         profiler.start()
         return profiler
 

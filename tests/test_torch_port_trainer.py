@@ -172,7 +172,8 @@ def test_entry_points_never_drift_to_the_cpu(monkeypatch, tmp_path):
 def test_unported_training_features_raise(tmp_path, over, error, match):
     """Two features ported late.  ``profile_steps`` runs: train steps 1-2 of
     epoch 0 traced by ``torch.profiler`` into one Chrome trace under
-    ``<log_dir>/profile/``, no trace of epoch 1.  IFSL's featuring pass
+    ``<log_dir>/profile/``, no trace of epoch 1, with the program's spans.
+    IFSL's featuring pass
     (``test_torch_port_ifsl_cycle.py``) refuses to run without its
     ``feature_path``."""
     if error is not None:
@@ -187,6 +188,9 @@ def test_unported_training_features_raise(tmp_path, over, error, match):
     with open(os.path.join(trainer.log_dir, "profile", traces[0])) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in str(e.get("name", "")) for e in events)
+    # the program's spans, the prefetch worker's among them
+    names = {str(e.get("name", "")) for e in events}
+    assert {"afs.data", "afs.data.build", "afs.transfer", "afs.backbone"} <= names
     assert len(trainer.history) == 2 and all(len(r["train_losses"]) == 4 for r in trainer.history)
 
 
